@@ -9,12 +9,16 @@ Phases, in order; any failure ends the script with a nonzero exit code and
 no result line:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
-  2. kernels  the fused-CE Triton pair (``dasac_tpu_torch/ops/ce.py``) built
-              from this checkout and held against its plain PyTorch version
-              at the flagship shape (f32 ``[8,512,1024,19]``, ~20% ignored
-              labels), with bf16 logits, and with every label ignored; then
-              the kernel, the plain version and ``F.cross_entropy`` (a
-              yardstick the port never calls) timed with CUDA events;
+  2. kernels  the fused-CE CUDA pair (``dasac_tpu_torch/csrc/ce.cu``,
+              bound in ``ops/ce.py``) built by nvcc from this checkout, with
+              nvcc's ``-Xptxas -v`` figures for each kernel; it and the
+              Triton pair kept as a yardstick (``ops/ce_triton.py``) held
+              against their plain PyTorch version at the flagship shape
+              (f32 ``[8,512,1024,19]``, ~20% ignored labels), with bf16
+              logits, and with every label ignored; then the CUDA kernel,
+              the Triton kernel, the plain version and ``F.cross_entropy``
+              (a yardstick the port never calls) timed in turns with CUDA
+              events;
   3. agree    the SAC views step on a small input, on the card and on the
               CPU (plain kernels, held against ``dasac_tpu`` by the tests),
               2 iterations, same weights and views;
@@ -22,7 +26,8 @@ no result line:
               full-depth ``deeplabv2_resnet101`` in bf16 at 512x1024, with
               8 source images and 2 target groups of 4 views, random
               weights and uint8 batches made from a seed.  The kernels'
-              launch counts are set to 0 just before and read just after.
+              launch counts (by kernel and by path) are set to 0 just
+              before and read just after: every launch on the bulk path.
               Then 2 more steps run under torch.profiler and their device
               time is printed by kernel and by part of the step.
 
@@ -33,6 +38,7 @@ line is ``{"ok": true, "device": {...}}``.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -43,7 +49,9 @@ import numpy as np
 SEED = 0
 N_STEPS = 8          # steps of the flagship slice; the first 2 are warm-up
 WARMUP_STEPS = 2
-REPS = 25            # timed launches per kernel measurement
+REPS = 25            # timed samples per kernel measurement and round
+CALLS_PER_SAMPLE = 5  # calls in a row between a sample's two events
+SPIN_CYCLES = 2_000_000  # ~1 ms of spin ahead of each sample's calls
 C = 19
 IGNORE = 255
 FLAGSHIP = (8, 512, 1024)
@@ -81,23 +89,80 @@ def mem_rate(name):
 # phase 2: the kernels
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps=REPS, warmup=3):
-    """Median over ``reps`` of one call's time from CUDA events."""
+def ptxas_summary(log):
+    """One dict per kernel from nvcc's ``-Xptxas -v`` output: registers,
+    spill stores and loads, stack frame."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1))
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def build_cuda(ce):
+    """Build (or load) the CE library and print each kernel's ptxas
+    figures."""
+    import torch
+
+    from dasac_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    ce._library(torch.device("cuda"))
+    log("build: %s in %.1f s" % (cuda_build.library_path(ce.SOURCE).name,
+                                 time.perf_counter() - t0))
+    rows = ptxas_summary(cuda_build.build_log(ce.SOURCE))
+    need(rows, "no ptxas figures in the build log")
+    for r in rows:
+        log("ptxas %s" % json.dumps(r))
+    return rows
+
+
+def cuda_times(fn, samples=REPS, per_sample=CALLS_PER_SAMPLE, warmup=3):
+    """``samples`` device times of one call, ms: each the CUDA-event time of
+    ``per_sample`` calls in a row over ``per_sample``.  A spin kernel ahead
+    of the first event holds the card while the host enqueues the calls,
+    so the host's launch latency is not counted, only the card's time."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(per_sample):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / per_sample)
+    return times
+
+
+def in_turns(fns, rounds=2):
+    """Median ms of each of ``fns`` (name -> callable), timed in turns:
+    in order, then in reverse order."""
+    samples = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            samples[k] += cuda_times(fns[k])
+    return {k: statistics.median(v) for k, v in samples.items()}
 
 
 def kernel_inputs(dtype, ignore_frac, device):
@@ -130,7 +195,8 @@ def check_kernels(ce, device):
         x2, lbl, g = kernel_inputs(dtype, frac, device)
         nll = ce.nll_fwd(x2, lbl)
         dx = ce.nll_bwd(x2, lbl, g)
-        torch.cuda.synchronize()
+        if x2.is_cuda:
+            torch.cuda.synchronize()
         need(nll.dtype == torch.float32 and dx.dtype == dtype,
              "%s: dtypes %s %s" % (name, nll.dtype, dx.dtype))
         err_f = (nll - ce.nll_fwd_plain(x2, lbl)).abs().max().item()
@@ -140,8 +206,8 @@ def check_kernels(ce, device):
             need(not nll.any() and not dx.any(), name + ": nonzero output")
         for kern, err, tol in (("nll_fwd", err_f, tol_f),
                                ("nll_bwd", err_b, tol_b)):
-            log("kernel check %-7s %-11s max_abs_err %.3e (tol %.1e)"
-                % (kern, name, err, tol))
+            log("kernel check %-7s %-11s max_abs_err %.3e (tol %.1e) %s"
+                % (kern, name, err, tol, ce.__name__))
             need(err <= tol, "%s %s disagrees with its plain version: "
                  "%.3e > %.1e" % (kern, name, err, tol))
             results.append(dict(kernel=kern, case=name, max_abs_err=err,
@@ -150,7 +216,10 @@ def check_kernels(ce, device):
     return results
 
 
-def time_kernels(ce, device, name):
+def time_kernels(ce, ce_triton, device, name):
+    """The CUDA kernel, the Triton kernel, the plain version and the
+    library call of each of K1, K2, in turns on the same inputs (335 MB,
+    above the 50 MB L2: cold by size)."""
     import torch
     import torch.nn.functional as F
 
@@ -179,22 +248,30 @@ def time_kernels(ce, device, name):
 
     fwd_bound, fwd_by = bound(xb + lb + n * 4, 6 * n * c)
     bwd_bound, bwd_by = bound(2 * xb + lb + n * 4, 8 * n * c)
+    fwd = in_turns(dict(
+        ms=lambda: ce.nll_fwd(x2, lbl),
+        triton_ms=lambda: ce_triton.nll_fwd(x2, lbl),
+        plain_ms=lambda: ce.nll_fwd_plain(x2, lbl),
+        library_ms=lib_fwd))
+    bwd = in_turns(dict(
+        ms=lambda: ce.nll_bwd(x2, lbl, g),
+        triton_ms=lambda: ce_triton.nll_bwd(x2, lbl, g),
+        plain_ms=lambda: ce.nll_bwd_plain(x2, lbl, g),
+        library_ms=lib_fwd_bwd))
     out = {
-        "nll_fwd": dict(
-            ms=cuda_ms(lambda: ce.nll_fwd(x2, lbl)),
-            plain_ms=cuda_ms(lambda: ce.nll_fwd_plain(x2, lbl)),
-            library_ms=cuda_ms(lib_fwd), bound_ms=fwd_bound,
-            bound_by=fwd_by, bytes=xb + lb + n * 4),
-        "nll_bwd": dict(
-            ms=cuda_ms(lambda: ce.nll_bwd(x2, lbl, g)),
-            plain_ms=cuda_ms(lambda: ce.nll_bwd_plain(x2, lbl, g)),
-            library_ms=cuda_ms(lib_fwd_bwd), bound_ms=bwd_bound,
-            bound_by=bwd_by, bytes=2 * xb + lb + n * 4),
+        "nll_fwd": dict(fwd, bound_ms=fwd_bound, bound_by=fwd_by,
+                        bytes=xb + lb + n * 4),
+        "nll_bwd": dict(bwd, bound_ms=bwd_bound, bound_by=bwd_by,
+                        bytes=2 * xb + lb + n * 4),
     }
     for k, v in out.items():
-        log("kernel time  %-7s %.4f ms (plain %.4f, F.cross_entropy %.4f, "
-            "bound %.4f by %s)" % (k, v["ms"], v["plain_ms"], v["library_ms"],
-                                   v["bound_ms"], v["bound_by"]))
+        v["bound_share"] = v["bound_ms"] / v["ms"]
+        v["triton_bound_share"] = v["bound_ms"] / v["triton_ms"]
+        log("kernel time  %-7s cuda %.4f ms (%.0f%% of bound), triton %.4f "
+            "(%.0f%%), plain %.4f, F.cross_entropy %.4f, bound %.4f by %s"
+            % (k, v["ms"], 100 * v["bound_share"], v["triton_ms"],
+               100 * v["triton_bound_share"], v["plain_ms"],
+               v["library_ms"], v["bound_ms"], v["bound_by"]))
     return out
 
 
@@ -280,7 +357,7 @@ def check_agreement(device):
 # phase 4: the flagship slice
 # ---------------------------------------------------------------------------
 
-def run_slice(ce, device, card):
+def run_slice(ce, ce_triton, device, card):
     import torch
 
     from dasac_tpu_torch.core.state import create_train_state
@@ -311,8 +388,12 @@ def run_slice(ce, device, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for k in ce.LAUNCHES:
-        ce.LAUNCHES[k] = 0
+    for counts in (ce.LAUNCHES, ce_triton.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    for by_path in ce.PATH_LAUNCHES.values():
+        for p in by_path:
+            by_path[p] = 0
     times, rows = [], []
     for i in range(N_STEPS):
         t0 = time.perf_counter()
@@ -328,8 +409,14 @@ def run_slice(ce, device, card):
         rows.append(row)
         log("slice step %d: %.1f ms %s" % (i, times[-1], json.dumps(row)))
     launches = dict(ce.LAUNCHES)
+    paths = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
+    triton_launches = dict(ce_triton.LAUNCHES)
     want = {"nll_fwd": 2 * N_STEPS, "nll_bwd": 2 * N_STEPS}
     need(launches == want, "CE launches %s, want %s" % (launches, want))
+    need(paths == {k: {"bulk": v, "strided": 0} for k, v in want.items()},
+         "CE launches by path %s: want all on the bulk path" % paths)
+    need(not any(triton_launches.values()),
+         "the Triton yardstick ran on the main path: %s" % triton_launches)
     need(state.step == N_STEPS and state.slow_init == 1,
          "step %d slow_init %d" % (state.step, state.slow_init))
     need(any(r["teacher_diff"] > 0 for r in rows[1:]),
@@ -341,11 +428,13 @@ def run_slice(ce, device, card):
         card=card, steps=N_STEPS, warmup=WARMUP_STEPS,
         step_ms=times, step_ms_median=statistics.median(times[WARMUP_STEPS:]),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        ce_launches=launches, batch=dict(source=b, target_groups=groups,
-                                         group_size=group_size, hw=[h, w]))
+        ce_launches=launches, ce_launches_by_path=paths,
+        triton_launches=triton_launches,
+        batch=dict(source=b, target_groups=groups, group_size=group_size,
+                   hw=[h, w]))
     log("slice: %s" % json.dumps(out))
     profile_steps(step, state, batch, gen, card)
-    return launches
+    return launches, paths, triton_launches
 
 
 # kernel-name fragments -> the part of the step they belong to
@@ -394,7 +483,12 @@ def profile_steps(step, state, batch, gen, card, n=2):
         device_ms_per_step=total / n, busy_share=total / wall,
         by_part_ms_per_step=groups,
         top=[dict(name=k[:90], ms_per_step=ms / n, calls_per_step=c / n)
-             for k, ms, c in rows[:25]])))
+             for k, ms, c in rows[:25]],
+        # the CE kernels inside the step, device time of one launch
+        ce_kernels=[dict(name=k[:90], ms_per_launch=ms / c,
+                         calls_per_step=c / n)
+                    for k, ms, c in rows
+                    if any(f in k for f in _GROUPS[0][1])])))
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +501,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dasac_tpu_torch.ops import ce
+    from dasac_tpu_torch.ops import ce, ce_triton
 
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
@@ -421,27 +515,46 @@ def main():
     log("torch: %s, cuda %s, %s x %d" % (torch.__version__, torch.version.cuda,
                                          name, torch.cuda.device_count()))
 
+    ptxas = build_cuda(ce)
+    paths_before = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
     checks = check_kernels(ce, device)
-    timing = time_kernels(ce, device, name)
+    need(all(ce.PATH_LAUNCHES[k]["bulk"] == paths_before[k]["bulk"] + 3
+             for k in ce.PATH_LAUNCHES),
+         "kernel checks off the bulk path: %s" % ce.PATH_LAUNCHES)
+    triton_checks = check_kernels(ce_triton, device)
+    timing = time_kernels(ce, ce_triton, device, name)
     torch.cuda.empty_cache()
     check_agreement(device)
-    launches = run_slice(ce, device, card)
+    launches, paths, triton_launches = run_slice(ce, ce_triton, device, card)
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
     kernels = []
-    for k in ("nll_fwd", "nll_bwd"):
-        mine = [c for c in checks if c["kernel"] == k]
-        t = timing[k]
-        kernels.append(dict(
-            name=k, route="triton", source="dasac_tpu_torch/ops/ce.py",
-            replaces=replaces[k], launches=launches[k],
-            max_abs_err=max(c["max_abs_err"] for c in mine),
-            tolerance={c["case"]: c["tol"] for c in mine},
-            checks=mine, ms=t["ms"], kernel_ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"],
-            bytes=t["bytes"], card=card))
+    for route, results in (("cuda", checks), ("triton", triton_checks)):
+        for k in ("nll_fwd", "nll_bwd"):
+            mine = [c for c in results if c["kernel"] == k]
+            t = timing[k]
+            row = dict(
+                name=k if route == "cuda" else k + "_triton", route=route,
+                source=("dasac_tpu_torch/csrc/ce.cu" if route == "cuda"
+                        else "dasac_tpu_torch/ops/ce_triton.py"),
+                replaces=replaces[k], main_path=route == "cuda",
+                launches=(launches if route == "cuda"
+                          else triton_launches)[k],
+                max_abs_err=max(c["max_abs_err"] for c in mine),
+                tolerance={c["case"]: c["tol"] for c in mine}, checks=mine,
+                ms=t["ms"] if route == "cuda" else t["triton_ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                bound_share=(t["bound_share"] if route == "cuda"
+                             else t["triton_bound_share"]),
+                bytes=t["bytes"], card=card)
+            if route == "cuda":
+                row.update(triton_ms=t["triton_ms"],
+                           launches_by_path=paths[k],
+                           ptxas=[r for r in ptxas if k + "_bulk_kernelILi19E"
+                                  in r["kernel"]])
+            kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log("card: %s; total %.1f s" % (card, time.perf_counter() - t_start))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
-"""Fused per-pixel cross-entropy: a hand-written Triton kernel pair for
-Hopper, its plain PyTorch version, and the autograd glue.
+"""Fused per-pixel cross-entropy: a hand-written CUDA C++ kernel pair for
+Hopper (``dasac_tpu_torch/csrc/ce.cu``), its plain PyTorch version, and
+the autograd glue.
 
 Counterpart of ``dasac_tpu/ops/ce.py``:
 
-  * ``nll_fwd`` replaces the Pallas ``_fwd_kernel`` (reached through
-    ``_fwd_call``): per row ``nll = logsumexp(x) - x[label]`` in f32, 0 where
-    ``label == 255``.
-  * ``nll_bwd`` replaces the Pallas ``_bwd_kernel`` (reached through
-    ``_bwd_call``): it recomputes the softmax from the logits and writes
-    ``dx = g * (softmax(x) - onehot(label))`` in the logits' dtype, 0 at
-    ignored rows.
+  * ``nll_fwd`` replaces the Pallas ``_fwd_kernel`` (``:49``, reached
+    through ``_fwd_call``): per row ``nll = logsumexp(x) - x[label]`` in
+    f32, 0 where ``label == 255``.
+  * ``nll_bwd`` replaces the Pallas ``_bwd_kernel`` (``:60``, reached
+    through ``_bwd_call``): it recomputes the softmax from the logits and
+    writes ``dx = g * (softmax(x) - onehot(label))`` in the logits' dtype,
+    0 at ignored rows.
 
 Both run twice per SAC step: the source ``cross_entropy_mean`` and the
 target ``focal_ce`` each take one forward and one backward.
@@ -19,44 +20,71 @@ matrix product, so bytes, not operations, set their floor.  At the flagship
 shape (f32 logits ``[8,512,1024,19]``, N = 4,194,304 rows, int32 labels)
 the forward reads 318.8 MB of logits and 16.8 MB of labels and writes
 16.8 MB; the backward reads the logits, labels and upstream gradient
-(318.8 + 16.8 + 16.8 MB) and writes 318.8 MB of ``dx``.  What the design
-does about it: one pass over the logits in each direction (max, sum of exp
-and the label pick come from the same registers), no log-softmax residual
-kept between forward and backward (only the logits and labels are saved),
-and ``dx`` written straight in the logits' dtype.
+(318.8 + 16.8 + 16.8 MB) and writes 318.8 MB of ``dx``.  A 19-wide row is
+76 bytes, never 16-byte aligned, so loads that follow the rows cannot be
+vectors and keep too few bytes in flight.  What the design does about it
+(the bulk path, every launch of the training step): tiles of 256 rows are
+flat runs of ``256 * C`` elements whose size and offset are multiples of 16
+bytes, moved whole into shared memory by the Tensor Memory Accelerator's
+1-D bulk copy through a ring of stages, in a persistent grid; one thread
+reduces one row from shared memory in f32, and the backward's ``dx`` tile
+leaves by one bulk store.  One pass over the logits in each direction, no
+log-softmax residual kept between forward and backward (only the logits
+and labels are saved), ``dx`` written straight in the logits' dtype.
+Inputs that are strided or not 16-byte aligned take a simple
+one-thread-per-row kernel (the strided path); :func:`kernel_path` chooses.
 
-A program takes ``_BLOCK_R`` rows; the class axis is padded to a power of
-two of at least 32 and masked.  The kernels take the row and class strides
-they are given.  The wrapper views ``[..., C]`` as ``[N, C]`` rows and
-raises when that needs a copy: a hidden ``.contiguous()`` would add a full
-read and write of the logits.  The model's ``logits_up`` is NHWC-contiguous,
-so on the main path the view is free.
+The kernels take f32, bf16 and f16 logits and int32 or int64 labels; other
+label types raise ``TypeError``.  The wrapper views ``[..., C]`` as
+``[N, C]`` rows and raises when that needs a copy: a hidden
+``.contiguous()`` would add a full read and write of the logits.  The
+model's ``logits_up`` is NHWC-contiguous, so on the main path the view is
+free.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel (``triton`` is imported and the kernels compiled at the
-first launch) or raise.  ``LAUNCHES`` counts kernel launches.
+launch the kernel (``nvcc`` builds ``csrc/ce.cu`` into ``build/kernels/``
+at the first launch) or raise.  ``LAUNCHES`` counts kernel launches by
+kernel and ``PATH_LAUNCHES`` by kernel and path.  The port's earlier Triton
+pair is kept off the main path in ``ops/ce_triton.py`` as a yardstick.
 """
 
-import os
-from pathlib import Path
+import ctypes
 
 import torch
 
+from dasac_tpu_torch.ops import cuda_build
+
 IGNORE = 255
 
-# kernel launches, by kernel; plain-version calls are not counted
+# kernel launches, by kernel and by path; plain-version calls are not
+# counted
 LAUNCHES = {"nll_fwd": 0, "nll_bwd": 0}
+PATH_LAUNCHES = {k: {"bulk": 0, "strided": 0} for k in LAUNCHES}
 
-_BLOCK_R = 128     # rows per program
-_NUM_WARPS = 4
-_KERNELS = {}
-_REPO = Path(__file__).resolve().parents[2]
-tl = None  # triton.language, bound by _kernels()
+SOURCE = cuda_build.REPO / "dasac_tpu_torch" / "csrc" / "ce.cu"
 
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# entry points of csrc/ce.cu: name -> (restype, argtypes)
+SIGNATURES = {
+    "ce_nll_fwd_bulk": (_INT, (_P, _P, _P, _I64, _I64, _INT, _INT, _INT,
+                               _P)),
+    "ce_nll_fwd_strided": (_INT, (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                  _INT, _INT, _INT, _P)),
+    "ce_nll_bwd_bulk": (_INT, (_P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
+                               _P)),
+    "ce_nll_bwd_strided": (_INT, (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                  _I64, _I64, _INT, _INT, _INT, _P)),
+    "ce_error_string": (ctypes.c_char_p, (_INT,)),
+}
+_X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LABEL_CODES = {torch.int32: 0, torch.int64: 1}
 
-def _block_c(c):
-    """Class axis padded to a power of two, at least 32."""
-    return max(32, 1 << (int(c) - 1).bit_length())
+# the bulk path's tiles and shared memory, as csrc/ce.cu lays them out
+_ROWS = 256
+_FWD_STAGES, _BWD_STAGES, _OUT_BUFS, _BAR_BYTES = 4, 3, 2, 128
+_SMEM_MAX = 232448     # shared memory one block may take on Hopper
+
+_LIB = None
 
 
 # ---------------------------------------------------------------------------
@@ -86,119 +114,104 @@ def nll_bwd_plain(x2, lbl, g):
 
 
 # ---------------------------------------------------------------------------
-# the Triton kernels
+# the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _kernels():
-    """Import triton and define the kernels (once, at the first launch)."""
-    if _KERNELS:
-        return _KERNELS
-    os.environ.setdefault("TRITON_CACHE_DIR", str(_REPO / "build" / "triton"))
-    # ``tl`` is bound module-wide: Triton compiles a kernel from its source
-    # and resolves the names it uses among the function's globals
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def nll_fwd(x_ptr, lbl_ptr, nll_ptr, n_rows, n_cls,
-                stride_row, stride_cls, stride_lbl,
-                IGNORE_ID: tl.constexpr, BLOCK_R: tl.constexpr,
-                BLOCK_C: tl.constexpr):
-        rows = tl.program_id(0).to(tl.int64) * BLOCK_R \
-            + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_C)
-        row_ok = rows < n_rows
-        col_ok = cols < n_cls
-        x = tl.load(x_ptr + rows[:, None] * stride_row
-                    + cols[None, :] * stride_cls,
-                    mask=row_ok[:, None] & col_ok[None, :],
-                    other=float("-inf")).to(tl.float32)
-        lbl = tl.load(lbl_ptr + rows * stride_lbl, mask=row_ok,
-                      other=IGNORE_ID).to(tl.int32)
-        m = tl.max(x, axis=1)
-        lse = tl.log(tl.sum(tl.exp(x - m[:, None]), axis=1)) + m
-        hit = (cols[None, :] == lbl[:, None]) & col_ok[None, :]
-        picked = tl.sum(tl.where(hit, x, 0.0), axis=1)
-        nll = tl.where(lbl != IGNORE_ID, lse - picked, 0.0)
-        tl.store(nll_ptr + rows, nll, mask=row_ok)
-
-    @triton.jit
-    def nll_bwd(x_ptr, lbl_ptr, g_ptr, dx_ptr, n_rows, n_cls,
-                stride_row, stride_cls, stride_lbl, stride_g,
-                IGNORE_ID: tl.constexpr, BLOCK_R: tl.constexpr,
-                BLOCK_C: tl.constexpr):
-        rows = tl.program_id(0).to(tl.int64) * BLOCK_R \
-            + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_C)
-        row_ok = rows < n_rows
-        col_ok = cols < n_cls
-        mask = row_ok[:, None] & col_ok[None, :]
-        x = tl.load(x_ptr + rows[:, None] * stride_row
-                    + cols[None, :] * stride_cls,
-                    mask=mask, other=float("-inf")).to(tl.float32)
-        lbl = tl.load(lbl_ptr + rows * stride_lbl, mask=row_ok,
-                      other=IGNORE_ID).to(tl.int32)
-        g = tl.load(g_ptr + rows * stride_g, mask=row_ok,
-                    other=0.0).to(tl.float32)
-        e = tl.exp(x - tl.max(x, axis=1)[:, None])
-        p = e / tl.sum(e, axis=1)[:, None]
-        hit = (cols[None, :] == lbl[:, None]) & col_ok[None, :]
-        onehot = tl.where(hit, 1.0, 0.0)
-        gv = tl.where(lbl != IGNORE_ID, g, 0.0)
-        dx = gv[:, None] * (p - onehot)
-        tl.store(dx_ptr + rows[:, None] * n_cls + cols[None, :],
-                 dx.to(dx_ptr.dtype.element_ty), mask=mask)
-
-    _KERNELS.update(nll_fwd=nll_fwd, nll_bwd=nll_bwd)
-    return _KERNELS
-
-
-def _check_cuda(x2, lbl, *others):
+def check_inputs(x2, lbl, *per_row):
+    """Raise on inputs the kernels do not take."""
     if x2.dim() != 2:
         raise ValueError("CE kernel takes [N, C] rows, got shape %s"
                          % (tuple(x2.shape),))
-    if x2.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if x2.dtype not in _X_CODES:
         raise TypeError("CE kernel takes f32/bf16/f16 logits, got %s"
                         % x2.dtype)
-    if lbl.is_floating_point() or lbl.dtype == torch.bool:
-        raise TypeError("CE kernel takes integer labels, got %s" % lbl.dtype)
-    for t in (lbl,) + others:
+    if lbl.dtype not in _LABEL_CODES:
+        raise TypeError("CE kernel takes int32 or int64 integer labels, "
+                        "got %s" % lbl.dtype)
+    for t in (lbl,) + per_row:
         if t.device != x2.device:
             raise ValueError("CE kernel inputs on %s and %s"
                              % (x2.device, t.device))
         if tuple(t.shape) != (x2.shape[0],):
             raise ValueError("CE kernel: per-row input of shape %s for %d "
                              "rows" % (tuple(t.shape), x2.shape[0]))
+    for t in per_row:
+        if t.dtype != torch.float32:
+            raise TypeError("CE kernel takes an f32 upstream gradient, got "
+                            "%s" % t.dtype)
 
 
-def _grid(n):
-    return ((n + _BLOCK_R - 1) // _BLOCK_R,)
+def _bulk_smem(kind, c, x_size, lbl_size):
+    """Shared memory of one bulk-path block, as csrc/ce.cu lays it out."""
+    x_tile = _ROWS * c * x_size
+    if kind == "nll_fwd":
+        return _BAR_BYTES + _FWD_STAGES * (x_tile + _ROWS * lbl_size)
+    return (_BAR_BYTES + _BWD_STAGES * (x_tile + _ROWS * lbl_size + _ROWS * 4)
+            + _OUT_BUFS * x_tile)
+
+
+def kernel_path(kind, x2, lbl, *per_row):
+    """``"bulk"`` when the logits, the labels and every per-row input
+    (``g``) are contiguous with 16-byte aligned bases and a block's tiles
+    fit in shared memory; ``"strided"`` otherwise (an offset view such as
+    ``x2[1:]``, a class slice, a transposed view)."""
+    smem = _bulk_smem(kind, x2.shape[1], x2.element_size(),
+                      lbl.element_size())
+    aligned = all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                  for t in (x2, lbl) + per_row)
+    return "bulk" if aligned and smem <= _SMEM_MAX else "strided"
+
+
+def _library(device):
+    global _LIB
+    if _LIB is None:
+        _LIB = cuda_build.load(SOURCE, SIGNATURES)
+    cuda_build.require_hopper(device)
+    return _LIB
+
+
+def _call(lib, kind, path, x2, args):
+    """Launch ``kind`` on ``path`` on the current stream; raise if CUDA
+    refused it."""
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    rc = getattr(lib, "ce_%s_%s" % (kind, path))(*args, x2.device.index,
+                                                 stream)
+    if rc:
+        raise RuntimeError("CE kernel %s (%s path) failed: CUDA error %d, %s"
+                           % (kind, path, rc,
+                              lib.ce_error_string(rc).decode()))
+    LAUNCHES[kind] += 1
+    PATH_LAUNCHES[kind][path] += 1
 
 
 def _launch_fwd(x2, lbl):
-    _check_cuda(x2, lbl)
+    check_inputs(x2, lbl)
     n, c = x2.shape
     out = torch.empty(n, device=x2.device, dtype=torch.float32)
     if n:
-        _kernels()["nll_fwd"][_grid(n)](
-            x2, lbl, out, n, c, x2.stride(0), x2.stride(1), lbl.stride(0),
-            IGNORE_ID=IGNORE, BLOCK_R=_BLOCK_R, BLOCK_C=_block_c(c),
-            num_warps=_NUM_WARPS)
-        LAUNCHES["nll_fwd"] += 1
+        path = kernel_path("nll_fwd", x2, lbl)
+        lib = _library(x2.device)
+        head = (x2.data_ptr(), lbl.data_ptr(), out.data_ptr(), n, c)
+        strides = (x2.stride(0), x2.stride(1), lbl.stride(0))
+        codes = (_X_CODES[x2.dtype], _LABEL_CODES[lbl.dtype])
+        _call(lib, "nll_fwd", path, x2,
+              head + (strides if path == "strided" else ()) + codes)
     return out
 
 
 def _launch_bwd(x2, lbl, g):
-    _check_cuda(x2, lbl, g)
+    check_inputs(x2, lbl, g)
     n, c = x2.shape
     dx = torch.empty((n, c), device=x2.device, dtype=x2.dtype)
     if n:
-        _kernels()["nll_bwd"][_grid(n)](
-            x2, lbl, g, dx, n, c, x2.stride(0), x2.stride(1), lbl.stride(0),
-            g.stride(0), IGNORE_ID=IGNORE, BLOCK_R=_BLOCK_R,
-            BLOCK_C=_block_c(c), num_warps=_NUM_WARPS)
-        LAUNCHES["nll_bwd"] += 1
+        path = kernel_path("nll_bwd", x2, lbl, g)
+        lib = _library(x2.device)
+        head = (x2.data_ptr(), lbl.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                n, c)
+        strides = (x2.stride(0), x2.stride(1), lbl.stride(0), g.stride(0))
+        codes = (_X_CODES[x2.dtype], _LABEL_CODES[lbl.dtype])
+        _call(lib, "nll_bwd", path, x2,
+              head + (strides if path == "strided" else ()) + codes)
     return dx
 
 
@@ -259,9 +272,10 @@ def nll_fused(logits, labels):
     (counterpart of ``dasac_tpu.ops.ce.nll_pallas``).
 
     Args:
-        logits: ``[..., C]`` float tensor (f32 or bf16), rows viewable
-            without a copy.
-        labels: ``[...]`` integer labels, 255 = ignore.
+        logits: ``[..., C]`` float tensor (f32, bf16 or f16), rows
+            viewable without a copy.
+        labels: ``[...]`` integer labels, 255 = ignore (int32 or int64 on
+            the card).
     Returns:
         f32 ``[...]`` NLL, zero at ignored pixels; differentiable w.r.t.
         ``logits`` (gradient in the logits' dtype).

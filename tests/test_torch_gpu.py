@@ -1,7 +1,9 @@
-"""Card-only tests of the port: the Triton CE kernels against their plain
-versions, and the autograd path through them.  They import no JAX, so they
-also run on a machine that has only PyTorch; there, skip the JAX-side
-conftest:
+"""Card-only tests of the port: the CUDA CE kernels of
+``dasac_tpu_torch/csrc/ce.cu`` (``nll_fwd`` and ``nll_bwd``, bulk and
+strided paths) against their plain versions, the autograd path through
+them, and the Triton pair kept as a yardstick (``ops/ce_triton.py``).  They
+import no JAX, so they also run on a machine that has only PyTorch; there,
+skip the JAX-side conftest:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
@@ -13,7 +15,7 @@ few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
 import pytest
 import torch
 
-from dasac_tpu_torch.ops import ce
+from dasac_tpu_torch.ops import ce, ce_triton
 from dasac_tpu_torch.sac import core
 
 pytestmark = pytest.mark.gpu
@@ -59,6 +61,122 @@ def test_kernels_match_plain(cuda, shape, c, dtype):
                                rtol=0, atol=tol)
 
 
+def _paths():
+    return {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
+
+
+def _check_rows(x2, l1, g1, path, dtol=None):
+    """Both kernels on these rows against the plain versions; each launch
+    counted once on ``path``."""
+    before = _paths()
+    nll = ce.nll_fwd(x2, l1)
+    dx = ce.nll_bwd(x2, l1, g1)
+    torch.cuda.synchronize()
+    after = _paths()
+    for k in ("nll_fwd", "nll_bwd"):
+        other = "strided" if path == "bulk" else "bulk"
+        assert after[k][path] == before[k][path] + 1, (k, after, before)
+        assert after[k][other] == before[k][other], (k, after, before)
+    assert nll.dtype == torch.float32 and dx.dtype == x2.dtype
+    assert dx.shape == x2.shape and dx.is_contiguous()
+    torch.testing.assert_close(nll, ce.nll_fwd_plain(x2, l1), rtol=0,
+                               atol=1e-4)
+    if dtol is None:
+        dtol = 1e-6 if x2.dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(dx.float(),
+                               ce.nll_bwd_plain(x2, l1, g1).float(),
+                               rtol=0, atol=dtol)
+
+
+# rows: a ragged N over several 256-row tiles, N under one tile, one row,
+# exactly one tile, and more tiles than the persistent grid has blocks
+@pytest.mark.parametrize("n", [3 * 256 + 77, 100, 1, 256, 300 * 256 + 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_bulk_path_ragged_rows(cuda, n, dtype):
+    x, lbl, gr = _case(cuda, (n,), dtype)
+    # f16 tolerance: one f16 ulp at 1 (2^-11) for dx
+    dtol = 2.0 ** -11 if dtype == torch.float16 else None
+    _check_rows(x, lbl, gr, "bulk", dtol)
+
+
+def test_zero_rows_launch_nothing(cuda):
+    x, lbl, gr = _case(cuda, (0,), torch.float32)
+    before, paths = dict(ce.LAUNCHES), _paths()
+    assert ce.nll_fwd(x, lbl).shape == (0,)
+    assert ce.nll_bwd(x, lbl, gr).shape == (0, 19)
+    assert ce.LAUNCHES == before and _paths() == paths
+
+
+def test_offset_view_takes_the_strided_path(cuda):
+    """``x2[1:]`` is contiguous but 76 bytes off a 16-byte boundary."""
+    x, lbl, gr = _case(cuda, (1000,), torch.float32)
+    assert x[1:].data_ptr() % 16 != 0
+    _check_rows(x[1:], lbl[1:], gr[1:], "strided")
+
+
+def test_transposed_rows_take_the_strided_path(cuda):
+    x, lbl, gr = _case(cuda, (700,), torch.float32)
+    xt = x.t().contiguous().t()      # [N, C] with strides (1, N)
+    _check_rows(xt, lbl, gr, "strided")
+
+
+@pytest.mark.parametrize("ldtype", [torch.int32, torch.int64])
+def test_int64_labels_and_labels_beyond_the_classes(cuda, ldtype):
+    """Labels in [19, 254] match no class: nll = lse and dx = g * p."""
+    x, lbl, gr = _case(cuda, (5, 256 + 31), torch.float32)
+    lbl = lbl.to(ldtype).view(-1)
+    lbl[::7] = 19
+    lbl[3::7] = 254
+    x2, g1 = x.view(-1, 19), gr.view(-1)
+    _check_rows(x2, lbl, g1, "bulk")
+    _check_rows(x2[1:], lbl[1:], g1[1:], "strided")
+    nll = ce.nll_fwd(x2, lbl)
+    lse = torch.logsumexp(x2, dim=1)
+    torch.testing.assert_close(nll[::7], lse[::7], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("path", ["bulk", "strided"])
+def test_all_ignored_rows_are_exactly_zero(cuda, path):
+    x, lbl, gr = _case(cuda, (4 * 256 + 9,), torch.float32, ignore_frac=1.0)
+    if path == "strided":
+        x, lbl, gr = x[1:], lbl[1:], gr[1:]
+    before = _paths()
+    nll = ce.nll_fwd(x, lbl)
+    dx = ce.nll_bwd(x, lbl, gr)
+    torch.cuda.synchronize()
+    assert not nll.any() and not dx.any()
+    for k in ("nll_fwd", "nll_bwd"):
+        assert ce.PATH_LAUNCHES[k][path] == before[k][path] + 1
+
+
+def test_label_types_the_kernels_do_not_take_raise(cuda):
+    x, lbl, gr = _case(cuda, (300,), torch.float32)
+    before = dict(ce.LAUNCHES)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        ce.nll_fwd(x, lbl.to(torch.uint8))
+    with pytest.raises(TypeError, match="int32 or int64"):
+        ce.nll_bwd(x, lbl.to(torch.int16), gr)
+    assert ce.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_triton_yardstick_matches_plain(cuda, dtype):
+    x, lbl, gr = _case(cuda, (3 * 256 + 77,), dtype)
+    before = dict(ce_triton.LAUNCHES)
+    nll = ce_triton.nll_fwd(x, lbl)
+    dx = ce_triton.nll_bwd(x, lbl, gr)
+    torch.cuda.synchronize()
+    assert ce_triton.LAUNCHES["nll_fwd"] == before["nll_fwd"] + 1
+    assert ce_triton.LAUNCHES["nll_bwd"] == before["nll_bwd"] + 1
+    torch.testing.assert_close(nll, ce.nll_fwd_plain(x, lbl), rtol=0,
+                               atol=1e-4)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(dx.float(),
+                               ce.nll_bwd_plain(x, lbl, gr).float(),
+                               rtol=0, atol=tol)
+
+
 def test_all_ignored_is_zero(cuda):
     x, lbl, gr = _case(cuda, (2, 9, 31), torch.float32, ignore_frac=1.0)
     x = x.requires_grad_(True)
@@ -70,12 +188,19 @@ def test_all_ignored_is_zero(cuda):
 
 def test_strided_rows_are_read_in_place(cuda):
     """A class-sliced view is viewable as rows with a row stride of 40: the
-    kernel reads it with the strides it is given, without a copy."""
+    kernel reads it with the strides it is given (the strided path),
+    without a copy."""
     x, lbl, gr = _case(cuda, (2, 6, 8), torch.float32, c=40)
     xs = x[..., :19]
+    before = _paths()
     ref = ce.nll_fwd_plain(xs.reshape(-1, 19), lbl.view(-1).clamp(max=18))
     got = ce.nll_fused(xs, lbl.clamp(max=18))
     torch.testing.assert_close(got.view(-1), ref, rtol=0, atol=1e-4)
+    assert ce.PATH_LAUNCHES["nll_fwd"]["strided"] == \
+        before["nll_fwd"]["strided"] + 1
+    assert ce.PATH_LAUNCHES["nll_fwd"]["bulk"] == before["nll_fwd"]["bulk"]
+    _check_rows(xs.reshape(-1, 19), lbl.view(-1).clamp(max=18),
+                gr.view(-1), "strided")
 
 
 def test_unviewable_layout_raises(cuda):

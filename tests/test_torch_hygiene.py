@@ -47,6 +47,9 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
     files = _port_files()
     assert len(files) > 15
+    # the Triton yardstick and the nvcc build module are scanned like the rest
+    for name in ("ce_triton.py", "cuda_build.py"):
+        assert REPO / "dasac_tpu_torch" / "ops" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}
     assert not {k: v for k, v in bad.items() if v}
