@@ -29,7 +29,29 @@ no result line:
               launch counts (by kernel and by path) are set to 0 just
               before and read just after: every launch on the bulk path.
               Then 2 more steps run under torch.profiler and their device
-              time is printed by kernel and by part of the step.
+              time is printed by kernel and by part of the step;
+  5. abn_agree  the ABN frames step on a small input (shallow r101, f32,
+              64x64), on the card and on the CPU, 2 iterations, same
+              weights and frames: losses, BN running statistics and
+              parameters;
+  6. abn      the flagship ABN step: ``make_abn_step`` on the full-width,
+              full-depth r101 in bf16 with the config of
+              ``configs/deeplabv2_resnet101.yaml`` (640x640 crops at scale
+              0.5-2.0 from 12 source frames of 1052x1914 and 8 target
+              frames of 1024x2048), 8 steps with the launch counts set to 0
+              before and read after (2 ``nll_fwd`` + 1 ``nll_bwd`` a step,
+              all bulk), then 2 steps under the profiler;
+  7. handoff  the ABN state saved with the port's Checkpointer and loaded
+              into a fresh SAC state (teacher not initialized, momentum
+              restored), then 2 flagship SAC steps from it;
+  8. eval     student and teacher eval (4 frames), the four-layer target
+              eval (2 groups of 4 views) and the visual step (1 group), at
+              512x1024, with their confusions checked against the labelled
+              pixel counts and each timed call's host and device ms;
+  9. infer    ``make_infer_fn`` on one 1024x2048 frame: one scale with
+              full-resolution fusion (held against the argmax of the
+              probabilities), and 3 scales with flip fused at stride 8.
+Each phase prints one JSON line with the card's name and power limit.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -83,6 +105,26 @@ def mem_rate(name):
         if key in name:
             return rate
     raise RuntimeError("no memory rate known for %r" % name)
+
+
+def abn_step_config():
+    """The ABN phase's step config: ``configs/deeplabv2_resnet101.yaml``
+    over the config defaults, spelled out (this script reads no YAML; a CPU
+    test holds it equal to ``step_config_from_cfg`` of the YAML), with the
+    CE kernels chosen explicitly."""
+    from dasac_tpu_torch.aug import pipelines
+    from dasac_tpu_torch.train import steps
+
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    src_mean, src_std = pipelines.renorm_stats(
+        mean, std, (0.481, 0.479, 0.465), (0.243, 0.239, 0.237),
+        (0.300, 0.344, 0.297), (0.175, 0.180, 0.177))
+    return steps.StepConfig(
+        num_classes=C, crop_hw=(640, 640), group_size=1, lr_target=0.0,
+        refine_dtype="bfloat16", refine_res="stride8", ce_impl="kernel",
+        src_scale=(0.5, 2.0), src_jitter=0.5, src_mean=src_mean,
+        src_std=src_std, guided_hflip=False, tgt_jitter=0.5, mean=mean,
+        std=std)
 
 
 # ---------------------------------------------------------------------------
@@ -357,43 +399,92 @@ def check_agreement(device):
 # phase 4: the flagship slice
 # ---------------------------------------------------------------------------
 
-def run_slice(ce, ce_triton, device, card):
+SAC_GROUPS, SAC_GROUP_SIZE = 2, 4
+
+
+def sac_step_config():
+    """The flagship SAC step's config (``bench.py:110-116``)."""
+    from dasac_tpu_torch.train import steps
+
+    return steps.StepConfig(
+        num_classes=C, crop_hw=FLAGSHIP[1:], group_size=SAC_GROUP_SIZE,
+        lr_target=5.0, net_momentum_iter=2, zoom=(0.5, 1.0),
+        guided_hflip=True, tgt_blur=True, tgt_jitter=0.4, tgt_greyscale=0.2,
+        src_scale=(0.5, 1.0), refine_dtype="bfloat16", refine_res="stride8",
+        ce_impl="kernel")
+
+
+def flagship_state(device, seed=SEED):
+    """Full-width, full-depth ``deeplabv2_resnet101`` in bf16 with random
+    weights from ``seed``, its SGD and train state."""
     import torch
 
     from dasac_tpu_torch.core.state import create_train_state
     from dasac_tpu_torch.nn.factory import build_model
-    from dasac_tpu_torch.train import optim, steps
+    from dasac_tpu_torch.train import optim
 
-    torch.backends.cudnn.benchmark = True
-    b, h, w = FLAGSHIP
-    groups, group_size = 2, 4
-    scfg = steps.StepConfig(
-        num_classes=C, crop_hw=(h, w), group_size=group_size, lr_target=5.0,
-        net_momentum_iter=2, zoom=(0.5, 1.0), guided_hflip=True,
-        tgt_blur=True, tgt_jitter=0.4, tgt_greyscale=0.2, src_scale=(0.5, 1.0),
-        refine_dtype="bfloat16", refine_res="stride8", ce_impl="kernel")
     model = build_model("deeplabv2_resnet101", C, dtype=torch.bfloat16,
                         remat="none", device=device,
-                        generator=torch.Generator().manual_seed(SEED))
+                        generator=torch.Generator().manual_seed(seed))
     opt = optim.build_optimizer(_ModelCfg, "deeplabv2_resnet101", model)
-    state = create_train_state(model, opt, C, device=device)
-    step = steps.make_sac_step(scfg, device=device)
+    return create_train_state(model, opt, C, device=device)
+
+
+def sac_batch(device):
+    """uint8 noise at the flagship shape: 8 source frames and 2 target
+    frames at 512x1024."""
+    import torch
+
+    b, h, w = FLAGSHIP
     rng = np.random.RandomState(SEED)
-    batch = tuple(torch.from_numpy(a).to(device) for a in (
+    return tuple(torch.from_numpy(a).to(device) for a in (
         (rng.rand(b, h, w, 3) * 255).astype(np.uint8),
         rng.randint(0, C, (b, h, w)).astype(np.uint8),
-        (rng.rand(groups, h, w, 3) * 255).astype(np.uint8),
-        rng.randint(0, C, (groups, h, w)).astype(np.uint8)))
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+        (rng.rand(SAC_GROUPS, h, w, 3) * 255).astype(np.uint8),
+        rng.randint(0, C, (SAC_GROUPS, h, w)).astype(np.uint8)))
 
+
+def reset_counts(ce, ce_triton):
     for counts in (ce.LAUNCHES, ce_triton.LAUNCHES):
         for k in counts:
             counts[k] = 0
     for by_path in ce.PATH_LAUNCHES.values():
         for p in by_path:
             by_path[p] = 0
+
+
+def read_counts(ce, ce_triton, want):
+    """The launch counts since ``reset_counts``; fails unless they are
+    ``want`` (kernel -> launches), every one on the bulk path, and no
+    Triton launch."""
+    launches = dict(ce.LAUNCHES)
+    paths = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
+    triton_launches = dict(ce_triton.LAUNCHES)
+    need(launches == want, "CE launches %s, want %s" % (launches, want))
+    need(paths == {k: {"bulk": v, "strided": 0} for k, v in want.items()},
+         "CE launches by path %s: want all on the bulk path" % paths)
+    need(not any(triton_launches.values()),
+         "the Triton yardstick ran on the main path: %s" % triton_launches)
+    return launches, paths, triton_launches
+
+
+def run_slice(ce, ce_triton, device, card):
+    import torch
+
+    from dasac_tpu_torch.train import steps
+
+    torch.backends.cudnn.benchmark = True
+    b, h, w = FLAGSHIP
+    groups, group_size = SAC_GROUPS, SAC_GROUP_SIZE
+    state = flagship_state(device)
+    model = state.model
+    step = steps.make_sac_step(sac_step_config(), device=device)
+    batch = sac_batch(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts(ce, ce_triton)
     times, rows = [], []
     for i in range(N_STEPS):
         t0 = time.perf_counter()
@@ -408,15 +499,8 @@ def run_slice(ce, ce_triton, device, card):
              "step %d: self_ce_per_class" % i)
         rows.append(row)
         log("slice step %d: %.1f ms %s" % (i, times[-1], json.dumps(row)))
-    launches = dict(ce.LAUNCHES)
-    paths = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
-    triton_launches = dict(ce_triton.LAUNCHES)
-    want = {"nll_fwd": 2 * N_STEPS, "nll_bwd": 2 * N_STEPS}
-    need(launches == want, "CE launches %s, want %s" % (launches, want))
-    need(paths == {k: {"bulk": v, "strided": 0} for k, v in want.items()},
-         "CE launches by path %s: want all on the bulk path" % paths)
-    need(not any(triton_launches.values()),
-         "the Triton yardstick ran on the main path: %s" % triton_launches)
+    launches, paths, triton_launches = read_counts(
+        ce, ce_triton, {"nll_fwd": 2 * N_STEPS, "nll_bwd": 2 * N_STEPS})
     need(state.step == N_STEPS and state.slow_init == 1,
          "step %d slow_init %d" % (state.step, state.slow_init))
     need(any(r["teacher_diff"] > 0 for r in rows[1:]),
@@ -447,7 +531,7 @@ _GROUPS = (("ce_kernels", ("nll_fwd", "nll_bwd")),
            ("elementwise", ("elementwise", "vectorized", "where", "fill")))
 
 
-def profile_steps(step, state, batch, gen, card, n=2):
+def profile_steps(step, state, batch, gen, card, n=2, label="profile"):
     """Device time of ``n`` steps by kernel, from torch.profiler: the
     largest kernels, the sums by part of the step, and the device busy
     share of the host wall time (kernel time summed over the window; the
@@ -478,7 +562,7 @@ def profile_steps(step, state, batch, gen, card, n=2):
                   if any(f in low for f in frags)), "other")
         groups[g] = groups.get(g, 0.0) + ms / n
     need(total > 0, "the profiler saw no device time")
-    log("profile: %s" % json.dumps(dict(
+    log("%s: %s" % (label, json.dumps(dict(
         card=card, steps=n, wall_ms_per_step=wall / n,
         device_ms_per_step=total / n, busy_share=total / wall,
         by_part_ms_per_step=groups,
@@ -488,7 +572,375 @@ def profile_steps(step, state, batch, gen, card, n=2):
         ce_kernels=[dict(name=k[:90], ms_per_launch=ms / c,
                          calls_per_step=c / n)
                     for k, ms, c in rows
-                    if any(f in k for f in _GROUPS[0][1])])))
+                    if any(f in k for f in _GROUPS[0][1])]))))
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the ABN step, card against CPU on a small input
+# ---------------------------------------------------------------------------
+
+def check_abn_agreement(device, card=None):
+    """``make_abn_frames_step`` on a shallow full-width r101 in f32 at 64x64
+    (2 source + 2 target frames), 2 iterations on the CPU and on
+    ``device`` from the same weights.  Tolerances: losses rtol 1e-3 /
+    atol 1e-5, BN running statistics and parameters after the 2 steps
+    rtol 1e-3 / atol 1e-5 (tests/test_torch_abn.py holds the CPU side to
+    ``dasac_tpu`` at that size and learning rate); step counters equal;
+    the teacher tensors unchanged bit for bit."""
+    import torch
+
+    from dasac_tpu_torch.core.state import create_train_state
+    from dasac_tpu_torch.nn.factory import build_model
+    from dasac_tpu_torch.train import optim, steps
+
+    h, w = 64, 64
+    scfg = steps.StepConfig(num_classes=C, crop_hw=(h, w), ce_impl="kernel")
+    rng = np.random.RandomState(SEED)
+    frames = []
+    for _ in range(2):
+        src_y = rng.randint(0, C, (2, h, w)).astype(np.int32)
+        src_y[:, -6:] = IGNORE
+        tgt_y = rng.randint(0, C, (2, h, w)).astype(np.int32)
+        tgt_y[:, :4] = IGNORE
+        frames.append(tuple(torch.from_numpy(a) for a in (
+            rng.randn(2, h, w, 3).astype(np.float32), src_y,
+            (rng.randn(2, h, w, 3) * 0.8 + 0.2).astype(np.float32), tgt_y)))
+    ref_sd = build_model("deeplabv2_resnet101", C, device="cpu",
+                         layers=(1, 1, 1, 1),
+                         generator=torch.Generator().manual_seed(SEED)
+                         ).state_dict()
+    runs = {}
+    for dev in ("cpu", device):
+        model = build_model("deeplabv2_resnet101", C, device="cpu",
+                            layers=(1, 1, 1, 1))
+        model.load_state_dict(ref_sd)
+        opt = optim.build_optimizer(_ModelCfg, "deeplabv2_resnet101", model)
+        state = create_train_state(model, opt, C, device=dev)
+        teacher0 = {k: v.clone() for k, v in state.teacher_params.items()}
+        step = steps.make_abn_frames_step(scfg)
+        mets = [step(state, *(a.to(dev) for a in f)) for f in frames]
+        need(all(torch.equal(v, teacher0[k])
+                 for k, v in state.teacher_params.items()),
+             "abn_agree: the teacher moved on %s" % dev)
+        runs[dev] = (state.model.state_dict(),
+                     [{k: float(v) for k, v in m.items()} for m in mets])
+    (sd_ref, m_ref), (sd_dev, m_dev) = runs["cpu"], runs[device]
+    for it, (a, b) in enumerate(zip(m_ref, m_dev)):
+        for k in a:
+            need(math.isclose(b[k], a[k], rel_tol=1e-3, abs_tol=1e-5),
+                 "abn_agree iter %d %s: %r vs %r" % (it, k, b[k], a[k]))
+    worst = 0.0
+    for k, v in sd_dev.items():
+        if v.is_floating_point():
+            torch.testing.assert_close(v.cpu(), sd_ref[k], rtol=1e-3,
+                                       atol=1e-5, msg=k)
+            worst = max(worst, (v.cpu() - sd_ref[k]).abs().max().item())
+        else:
+            need(torch.equal(v.cpu(), sd_ref[k]), k)
+    out = dict(phase="abn_agree", card=card, iterations=2, hw=[h, w],
+               losses_cpu=m_ref, losses_card=m_dev,
+               max_abs_diff_params_and_stats=worst)
+    log("abn_agree: %s" % json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the flagship ABN step
+# ---------------------------------------------------------------------------
+
+# loader sizes of the ABN recipe's frames: GTA5 (data/lists.py:71) and
+# Cityscapes; 12 source + 8 target frames (TRAIN.BATCH_SIZE, NUM_GROUPS)
+ABN_SRC = (12, 1052, 1914)
+ABN_TGT = (8, 1024, 2048)
+INFER_HW = (1024, 2048)  # one Cityscapes val frame
+
+
+def abn_batch(device):
+    """uint8 frames from ``RandomState(SEED)``, labels 0..18 with about 10%
+    ignored."""
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    out = []
+    for b, h, w in (ABN_SRC, ABN_TGT):
+        lbl = rng.randint(0, C, (b, h, w)).astype(np.uint8)
+        lbl[rng.rand(b, h, w) < 0.1] = IGNORE
+        out += [rng.randint(0, 256, (b, h, w, 3), dtype=np.uint8), lbl]
+    return tuple(torch.from_numpy(a).to(device) for a in out)
+
+
+def run_abn(ce, ce_triton, device, card):
+    """8 ABN steps (2 warm-up) on the flagship model, then 2 more under the
+    profiler.  Returns the state and the launch counts of the 8 steps (CUDA
+    by kernel, CUDA by path, Triton by kernel)."""
+    import torch
+
+    from dasac_tpu_torch.train import steps
+
+    scfg = abn_step_config()
+    state = flagship_state(device)
+    model = state.model
+    step = steps.make_abn_step(scfg, device=device)
+    batch = abn_batch(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    teacher0 = {k: v.clone() for k, v in {**state.teacher_params,
+                                          **state.teacher_stats}.items()}
+    stats0 = {k: v.clone() for k, v in model.named_buffers()
+              if k.endswith("running_mean")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts(ce, ce_triton)
+    times, rows = [], []
+    for i in range(N_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        row = {k: float(v) for k, v in m.items()}
+        for k, v in row.items():
+            need(math.isfinite(v), "abn step %d: %s = %r" % (i, k, v))
+        rows.append(row)
+        log("abn step %d: %.1f ms %s" % (i, times[-1], json.dumps(row)))
+    launches, paths, triton_launches = read_counts(
+        ce, ce_triton, {"nll_fwd": 2 * N_STEPS, "nll_bwd": N_STEPS})
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(v, stats0[k]) for k, v in
+                model.named_buffers() if k in stats0)
+    need(moved == len(stats0), "BN running means moved in %d of %d layers"
+         % (moved, len(stats0)))
+    need(all(torch.equal(v, teacher0[k]) for k, v in
+             {**state.teacher_params, **state.teacher_stats}.items()),
+         "the ABN step moved the teacher")
+    need(not state.running_conf.any() and state.slow_init == 0,
+         "the ABN step touched running_conf or slow_init")
+    tracked = {int(v) for k, v in model.state_dict().items()
+               if k.endswith("num_batches_tracked")}
+    need(tracked == {2 * N_STEPS}, "num_batches_tracked %s" % tracked)
+    nonfinite = [k for k, p in model.named_parameters()
+                 if not torch.isfinite(p).all()]
+    need(not nonfinite, "non-finite params: %s" % nonfinite[:4])
+    out = dict(
+        phase="abn", card=card, steps=N_STEPS, warmup=WARMUP_STEPS,
+        step_ms=times, step_ms_median=statistics.median(times[WARMUP_STEPS:]),
+        max_memory_allocated=peak, losses=rows, ce_launches=launches,
+        ce_launches_by_path=paths, bn_layers_moved=moved,
+        batch=dict(source=list(ABN_SRC), target=list(ABN_TGT),
+                   crop=list(scfg.crop_hw), scale=list(scfg.src_scale)))
+    log("abn: %s" % json.dumps(out))
+    profile_steps(step, state, batch, gen, card, label="abn_profile")
+    log("abn_augment: %s" % json.dumps(dict(
+        card=card, augment_ms=augment_ms(scfg, batch, gen))))
+    return state, launches, paths, triton_launches
+
+
+def augment_ms(scfg, batch, gen):
+    """Host time of the ABN step's augmentation alone (source and target
+    frames through the source pipeline), median of 3 after a warm-up."""
+    from dasac_tpu_torch.aug import pipelines
+
+    def run():
+        for (images, labels), (mean, std) in (
+                (batch[:2], (scfg.src_mean, scfg.src_std)),
+                (batch[2:], (scfg.mean, scfg.std))):
+            pipelines.augment_source_batch(
+                gen, images, labels, crop_hw=scfg.crop_hw,
+                scale_range=scfg.src_scale, hflip=scfg.src_hflip,
+                jitter=scfg.src_jitter, blur=scfg.src_blur, mean=mean,
+                std=std)
+
+    return median_ms(run)[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 7: ABN -> SAC through a snapshot
+# ---------------------------------------------------------------------------
+
+def run_handoff(ce, ce_triton, abn_state, device, card):
+    """Save the ABN state with the port's Checkpointer (inside the
+    checkout's ``build/``), load it into a fresh flagship SAC state, run 2
+    SAC steps from it.  Returns the SAC state."""
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.train import checkpoints, steps
+
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "smoke_handoff")
+    try:
+        ck = checkpoints.Checkpointer(ckpt_dir)
+        t0 = time.perf_counter()
+        path = ck.save_latest(abn_state, 0.0, 0)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        state = flagship_state(device, seed=SEED + 1)
+        t0 = time.perf_counter()
+        _, epoch, _ = ck.load(path, state)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    need(state.slow_init == 0, "slow_init %r after an ABN snapshot"
+         % state.slow_init)
+    params = list(state.model.parameters())
+    need(all("momentum_buffer" in state.optimizer.state[p] for p in params),
+         "momentum missing after the load")
+    for (k, a), b in zip(state.model.state_dict().items(),
+                         abn_state.model.state_dict().values()):
+        need(torch.equal(a, b), "student %s differs from the snapshot" % k)
+
+    step = steps.make_sac_step(sac_step_config(), device=device)
+    batch = sac_batch(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    reset_counts(ce, ce_triton)
+    rows = []
+    for i in range(2):
+        m = step(state, batch, gen)
+        row = {k: float(m[k]) for k in ("src_loss_ce", "self_ce",
+                                        "teacher_diff", "pseudo_cover")}
+        for k, v in row.items():
+            need(math.isfinite(v), "handoff step %d: %s = %r" % (i, k, v))
+        rows.append(row)
+    torch.cuda.synchronize()
+    launches, paths, _ = read_counts(ce, ce_triton,
+                                     {"nll_fwd": 4, "nll_bwd": 4})
+    need(state.slow_init == 1, "the first SAC step did not init the teacher")
+    out = dict(phase="handoff", card=card, snapshot_bytes=size,
+               save_s=save_s, load_s=load_s, epoch=epoch, sac_steps=rows,
+               ce_launches=launches, ce_launches_by_path=paths)
+    log("handoff: %s" % json.dumps(out))
+    return state
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: evaluation and inference at full width
+# ---------------------------------------------------------------------------
+
+def median_ms(fn, n=3):
+    """One warm-up call, then ``n`` calls, each timed on the host (ending in
+    a synchronize) and on the device (CUDA events around it).  Returns the
+    median host ms, the warm-up call's output, and every call's
+    ``{"host_ms": [...], "device_ms": [...]}``: a device time well below
+    the host time means the host held the card back."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    times = {"host_ms": [], "device_ms": []}
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        times["device_ms"].append(start.elapsed_time(end))
+    return statistics.median(times["host_ms"]), out, times
+
+
+def run_eval(state, device, card):
+    """Student and teacher eval on 4 frames (the val batch, BATCH_SIZE //
+    2), the four-layer target eval on 2 groups of 4 views and the visual
+    step on 1 group, all at 512x1024."""
+    import torch
+
+    from dasac_tpu_torch.train import steps
+
+    scfg = sac_step_config()
+    _, h, w = FLAGSHIP
+    rng = np.random.RandomState(SEED + 2)
+    images = torch.from_numpy(
+        rng.randint(0, 256, (4, h, w, 3), dtype=np.uint8)).to(device)
+    lbl = rng.randint(0, C, (4, h, w)).astype(np.uint8)
+    lbl[rng.rand(4, h, w) < 0.1] = IGNORE
+    labels = torch.from_numpy(lbl).to(device)
+    n_valid = int((labels != IGNORE).sum())
+    out = dict(phase="eval", card=card, hw=[h, w])
+    for who in ("student", "teacher"):
+        fn = steps.make_eval_step(scfg, device=device,
+                                  teacher=who == "teacher")
+        ms, conf, out["times_%s" % who] = median_ms(
+            lambda: fn(state, images, labels))
+        need(conf.shape == (C, C) and int(conf.sum()) == n_valid,
+             "eval %s: confusion sums to %d, want %d"
+             % (who, int(conf.sum()), n_valid))
+        out["eval_%s_ms" % who] = ms
+
+    tgt_images, tgt_labels = sac_batch(device)[2:]
+    fn = steps.make_target_eval_step(scfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    gen_state = gen.get_state()
+    confs = fn(state, tgt_images, tgt_labels, gen)
+    # the same views again, to count their labelled pixels
+    views = steps.augment_target(scfg, gen.set_state(gen_state),
+                                  tgt_images, tgt_labels)
+    n_views = int((views.labels != IGNORE).sum())
+    need(set(confs) == {"logits_up", "teacher_init", "teacher_refined",
+                        "teacher_labels"}, "target eval layers %s" % list(confs))
+    sums = {k: int(v.sum()) for k, v in confs.items()}
+    need(all(sums[k] == n_views for k in ("logits_up", "teacher_init",
+                                          "teacher_refined")),
+         "target eval sums %s, want %d" % (sums, n_views))
+    # unlabelled teacher pixels are not counted
+    need(0 <= sums["teacher_labels"] <= n_views,
+         "teacher_labels sums to %d of %d" % (sums["teacher_labels"],
+                                             n_views))
+    out["target_eval_ms"], _, out["times_target_eval"] = median_ms(
+        lambda: fn(state, tgt_images, tgt_labels, gen))
+    out["target_eval_sums"] = dict(sums, labelled_view_pixels=n_views)
+
+    vis = steps.make_visual_step(scfg, device=device)
+    out["visual_ms"], res, out["times_visual"] = median_ms(
+        lambda: vis(state, tgt_images[:1], tgt_labels[:1], gen))
+    views, refined, pseudo, up, diags = res
+    need(tuple(refined.shape) == (SAC_GROUP_SIZE, h, w, C)
+         and bool(torch.isfinite(refined).all())
+         and set(diags) == {"teacher_aligned", "frames_aligned"},
+         "visual step outputs")
+    log("eval: %s" % json.dumps(out))
+    return out
+
+
+def run_infer(state, device, card):
+    """``make_infer_fn`` on one 1024x2048 frame: (a) the reference protocol
+    (one scale, full-resolution fusion, labels), held against the argmax of
+    the probabilities program; (b) 3 scales with flip fused at stride 8."""
+    import torch
+
+    from dasac_tpu_torch.infer import engine
+
+    cfg = abn_step_config()
+    rng = np.random.RandomState(SEED + 3)
+    image = torch.from_numpy(
+        rng.randint(0, 256, (1, *INFER_HW, 3), dtype=np.uint8)).to(device)
+    settings = {
+        "single": dict(scales=(1.0,)),
+        "multi_flip_stride8": dict(scales=(0.75, 1.0, 1.25), flip=True,
+                                   fuse="stride8")}
+    out = dict(phase="infer", card=card, hw=list(INFER_HW))
+    for name, kw in settings.items():
+        fn = engine.make_infer_fn(state.model, cfg.mean, cfg.std,
+                                  output="argmax", device=device, **kw)
+        ms, labels, times = median_ms(lambda: fn(image), n=5)
+        need(labels.dtype == torch.uint8
+             and tuple(labels.shape) == (1, *INFER_HW)
+             and int(labels.max()) < C, "infer %s labels" % name)
+        out[name] = dict(ms_per_image=ms, images_per_s=1e3 / ms, **times)
+        if name == "single":
+            probs = engine.make_infer_fn(state.model, cfg.mean, cfg.std,
+                                         device=device, **kw)(image)
+            # the two may differ only where softmax rounds the top two
+            # logits to the same probability (argmax then takes the first)
+            differ = probs.argmax(-1).to(torch.uint8) != labels
+            top2 = probs[differ].topk(2, dim=-1).values
+            need(bool((top2[:, 0] == top2[:, 1]).all()),
+                 "infer: the argmax program differs from the argmax of the "
+                 "probabilities away from a tie")
+            out[name]["argmax_vs_probs_mismatch"] = int(differ.sum())
+            del probs, differ
+    log("infer: %s" % json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -526,6 +978,15 @@ def main():
     torch.cuda.empty_cache()
     check_agreement(device)
     launches, paths, triton_launches = run_slice(ce, ce_triton, device, card)
+    torch.cuda.empty_cache()
+    check_abn_agreement(device, card)
+    abn_state, abn_launches, abn_paths, abn_triton = run_abn(
+        ce, ce_triton, device, card)
+    sac_state = run_handoff(ce, ce_triton, abn_state, device, card)
+    del abn_state
+    torch.cuda.empty_cache()
+    run_eval(sac_state, device, card)
+    run_infer(sac_state, device, card)
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -549,6 +1010,10 @@ def main():
                 bound_share=(t["bound_share"] if route == "cuda"
                              else t["triton_bound_share"]),
                 bytes=t["bytes"], card=card)
+            row.update(launches_abn=(abn_launches if route == "cuda"
+                                     else abn_triton)[k],
+                       launches_by_path_abn=(abn_paths[k] if route == "cuda"
+                                             else None))
             if route == "cuda":
                 row.update(triton_ms=t["triton_ms"],
                            launches_by_path=paths[k],

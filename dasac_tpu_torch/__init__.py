@@ -12,7 +12,9 @@ the tests hold this one against).
   ops/    hand-written GPU kernels (fused per-pixel CE pair, Triton)
   sac/    the adaptation algorithm (EMA teacher, running conf,
           pseudo-labels, focal CE, multi-view refinement)
-  train/  optimizer groups and the SAC train step
+  train/  optimizer groups, the SAC and ABN train steps, the eval steps,
+          metrics and checkpoints (the reference's .pth container)
+  infer/  multi-scale (+flip) inference program
 
 Public tensors are channels-last (NHWC), as in ``dasac_tpu``.
 """

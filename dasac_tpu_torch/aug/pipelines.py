@@ -15,6 +15,7 @@ deterministic ``apply_*(draws, ...)``.
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from dasac_tpu_torch.aug import photometric as P
@@ -275,3 +276,16 @@ def augment_source_batch(generator, images, labels, *, crop_hw,
     return apply_source_batch(draws, images, labels, crop_hw=crop_hw,
                               hflip=hflip, jitter=jitter, blur=blur,
                               mean=mean, std=std)
+
+
+def renorm_stats(mean, std, source_mean, source_std, target_mean, target_std):
+    """Source-renormalisation statistics (reference dataloader_seg.py:96-107):
+    mean' = mu_src - sigma_src/sigma_tgt * (mu_tgt - mean),
+    std'  = sigma_src * std / sigma_tgt.  Numpy on the host."""
+    mean = np.asarray(mean)
+    std = np.asarray(std)
+    m_src, s_src = np.asarray(source_mean), np.asarray(source_std)
+    m_tgt, s_tgt = np.asarray(target_mean), np.asarray(target_std)
+    new_mean = m_src - s_src / s_tgt * (m_tgt - mean)
+    new_std = s_src * std / s_tgt
+    return tuple(new_mean.tolist()), tuple(new_std.tolist())

@@ -5,7 +5,9 @@
     interpolation-matrix products (the JAX ``"matmul"`` method), so the
     output stays NHWC-contiguous and the weights are the JAX ones;
   * ceil-mode max pooling, padded with -inf to the extent the JAX version
-    computes.
+    computes;
+  * half-pixel linear resize, antialiased when it shrinks (the counterpart
+    of ``jax.image.resize(..., "linear")``).
 """
 
 import numpy as np
@@ -74,3 +76,18 @@ def max_pool_ceil(x, window=3, stride=2, padding=1):
     pad_w_hi = (ow - 1) * stride + window - w - padding
     xp = F.pad(x, (padding, pad_w_hi, padding, pad_h_hi), value=float("-inf"))
     return F.max_pool2d(xp, window, stride)
+
+
+def resize_linear(x, hw):
+    """``jax.image.resize(x, (B, h, w, C), "linear")`` on an NHWC tensor:
+    half-pixel centres (align_corners=False) and, when a side shrinks, a
+    triangle filter widened by the scale (antialiasing), with the weights
+    of taps outside the image dropped and the rest renormalized.  Computed
+    by ``F.interpolate(mode="bilinear", antialias=True)`` on an NCHW view
+    of the same memory; returns NHWC."""
+    out_h, out_w = int(hw[0]), int(hw[1])
+    if (x.shape[1], x.shape[2]) == (out_h, out_w):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1)

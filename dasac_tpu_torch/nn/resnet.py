@@ -137,8 +137,13 @@ class DeepLabV2ResNet101(nn.Module):
         self.model.layer5 = ASPP(self.model.out_channels, num_classes,
                                  dtype=dtype)
 
-    def forward(self, x, train=False, update_stats=False, generator=None):
+    def forward(self, x, train=False, update_stats=False, generator=None,
+                upsample=True):
+        """``upsample=False`` returns ``(logits_s8, None)`` (inference on
+        the stride-8 grid)."""
         h, w = x.shape[1], x.shape[2]
         feats = self.model(x.to(self.dtype).permute(0, 3, 1, 2), update_stats)
         logits = self.model.layer5(feats).float().permute(0, 2, 3, 1)
+        if not upsample:
+            return logits, None
         return logits, resize_bilinear_align_corners(logits, (h, w))

@@ -26,7 +26,9 @@ class TinySeg(nn.Module):
         self.bn_b = SyncBatchNorm(width)
         self.aspp = Conv2d(width, num_classes, 1, bias=True)
 
-    def forward(self, x, train=False, update_stats=False, generator=None):
+    def forward(self, x, train=False, update_stats=False, generator=None,
+                upsample=True):
+        """``upsample=False`` returns ``(logits, None)``."""
         h, w = x.shape[1], x.shape[2]
         y = x.permute(0, 3, 1, 2)
         y = torch.relu(self.bn_a(self.conv_a(y), not update_stats))
@@ -38,4 +40,6 @@ class TinySeg(nn.Module):
                               device=y.device) >= 0.1
             y = y * (keep.to(y.dtype) / 0.9)[:, :, None, None]
         logits = self.aspp(y).float().permute(0, 2, 3, 1)
+        if not upsample:
+            return logits, None
         return logits, resize_bilinear_align_corners(logits, (h, w))

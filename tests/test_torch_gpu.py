@@ -7,6 +7,12 @@ skip the JAX-side conftest:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
+The ABN frames step on the card is held against its CPU run (the
+tolerances of ``chip_smoke.check_abn_agreement``), one ABN step is counted
+at 2 ``nll_fwd`` + 1 ``nll_bwd`` launches on the bulk path, and the
+inference program's labels are the argmax of its probabilities, which
+agree with the CPU's within 1e-5.
+
 Without a card every test here skips.  Tolerances, absolute: NLL 1e-4 (a
 few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
 (2^-8), since both sides round the same f32 value to bf16.
@@ -15,8 +21,12 @@ few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
 import pytest
 import torch
 
+from dasac_tpu_torch.core.state import create_train_state
+from dasac_tpu_torch.infer import engine
+from dasac_tpu_torch.nn.factory import build_model
 from dasac_tpu_torch.ops import ce, ce_triton
 from dasac_tpu_torch.sac import core
+from dasac_tpu_torch.train import optim, steps
 
 pytestmark = pytest.mark.gpu
 
@@ -237,3 +247,75 @@ def test_losses_through_the_kernels_match_plain_formula(cuda, use_conf):
         grads[impl] = (src.detach(), tgt.detach(), per_class, xi.grad)
     for a, b in zip(grads["kernel"], grads["logsoftmax"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the ABN step and the inference program on the card
+# ---------------------------------------------------------------------------
+
+class _MC:
+    LR = 2.5e-4
+    WEIGHT_DECAY = 5e-4
+    OPT = "SGD"
+    OPT_NESTEROV = False
+    MOMENTUM = 0.9
+
+
+def test_abn_frames_step_matches_cpu(cuda):
+    import chip_smoke
+
+    out = chip_smoke.check_abn_agreement(cuda)
+    assert out["iterations"] == 2
+
+
+def test_abn_step_launches_two_forward_one_backward_on_the_bulk_path(cuda):
+    scfg = steps.StepConfig(num_classes=5, crop_hw=(32, 48),
+                            src_scale=(0.5, 2.0), src_jitter=0.5,
+                            ce_impl="kernel")
+    model = build_model("tiny", 5, device=cuda)
+    state = create_train_state(model, optim.build_optimizer(_MC, "tiny",
+                                                            model),
+                               5, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = (torch.randint(0, 256, (3, 50, 70, 3), generator=g, device=cuda,
+                           dtype=torch.uint8),
+             torch.randint(0, 5, (3, 50, 70), generator=g, device=cuda,
+                           dtype=torch.uint8),
+             torch.randint(0, 256, (2, 40, 80, 3), generator=g, device=cuda,
+                           dtype=torch.uint8),
+             torch.randint(0, 5, (2, 40, 80), generator=g, device=cuda,
+                           dtype=torch.uint8))
+    step = steps.make_abn_step(scfg, device=cuda)
+    step(state, batch, g)       # builds the library outside the count
+    before, paths = dict(ce.LAUNCHES), _paths()
+    m = step(state, batch, g)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v) for v in m.values())
+    assert ce.LAUNCHES["nll_fwd"] == before["nll_fwd"] + 2
+    assert ce.LAUNCHES["nll_bwd"] == before["nll_bwd"] + 1
+    after = _paths()
+    assert after["nll_fwd"]["bulk"] == paths["nll_fwd"]["bulk"] + 2
+    assert after["nll_bwd"]["bulk"] == paths["nll_bwd"]["bulk"] + 1
+    assert all(after[k]["strided"] == paths[k]["strided"] for k in after)
+
+
+@pytest.mark.parametrize("kw", [dict(scales=(1.0,)),
+                                dict(scales=(0.75, 1.0), flip=True),
+                                dict(scales=(0.75, 1.0, 1.25), flip=True,
+                                     fuse="stride8")])
+def test_infer_labels_are_the_argmax_of_probs(cuda, kw):
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    model = build_model("tiny", 19, device=cuda)
+    img = torch.randint(0, 256, (2, 64, 96, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(1))
+    probs = engine.make_infer_fn(model, mean, std, device=cuda, **kw)(img)
+    labels = engine.make_infer_fn(model, mean, std, output="argmax",
+                                  device=cuda, **kw)(img)
+    assert labels.dtype == torch.uint8 and labels.shape == (2, 64, 96)
+    differ = probs.argmax(-1).to(torch.uint8) != labels
+    top2 = probs[differ].topk(2, dim=-1).values
+    assert bool((top2[:, 0] == top2[:, 1]).all())
+    model_cpu = build_model("tiny", 19, device="cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    ref = engine.make_infer_fn(model_cpu, mean, std, device="cpu", **kw)(img)
+    torch.testing.assert_close(probs.cpu(), ref, rtol=0, atol=1e-5)

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from dasac_tpu_torch.core.state import create_train_state
+from dasac_tpu_torch.infer import engine
 from dasac_tpu_torch.nn.factory import build_model
 from dasac_tpu_torch.ops import ce
 from dasac_tpu_torch.train import optim, steps
@@ -47,9 +48,11 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
     files = _port_files()
     assert len(files) > 15
-    # the Triton yardstick and the nvcc build module are scanned like the rest
-    for name in ("ce_triton.py", "cuda_build.py"):
-        assert REPO / "dasac_tpu_torch" / "ops" / name in files
+    # the Triton yardstick, the nvcc build module and the eval, checkpoint
+    # and inference modules are scanned like the rest
+    for name in ("ops/ce_triton.py", "ops/cuda_build.py", "train/metrics.py",
+                 "train/checkpoints.py", "infer/engine.py"):
+        assert REPO / "dasac_tpu_torch" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}
     assert not {k: v for k, v in bad.items() if v}
@@ -73,6 +76,12 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         create_train_state(model, opt, 5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         steps.make_sac_step(steps.StepConfig())
+    for make in (steps.make_abn_step, steps.make_eval_step,
+                 steps.make_target_eval_step, steps.make_visual_step):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(steps.StepConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.make_infer_fn(model, (0.5,) * 3, (0.2,) * 3)
     # naming the CPU is the caller's explicit choice
     assert create_train_state(model, opt, 5, device="cpu").step == 0
 
