@@ -13,12 +13,14 @@ no result line:
               bound in ``ops/ce.py``) built by nvcc from this checkout, with
               nvcc's ``-Xptxas -v`` figures for each kernel; it and the
               Triton pair kept as a yardstick (``ops/ce_triton.py``) held
-              against their plain PyTorch version at the flagship shape
+              against their plain PyTorch version at the SAC step's shape
               (f32 ``[8,512,1024,19]``, ~20% ignored labels), with bf16
-              logits, and with every label ignored; then the CUDA kernel,
-              the Triton kernel, the plain version and ``F.cross_entropy``
-              (a yardstick the port never calls) timed in turns with CUDA
-              events;
+              logits, and with every label ignored, and at the ABN step's
+              source and target shapes (f32 ``[12,640,640,19]`` and
+              ``[8,640,640,19]``, 10% ignored plus crop padding); then
+              the CUDA kernel, the Triton kernel, the plain version and
+              ``F.cross_entropy`` (a yardstick the port never calls) timed
+              in turns with CUDA events at the SAC step's shape;
   3. agree    the SAC views step on a small input, on the card and on the
               CPU (plain kernels, held against ``dasac_tpu`` by the tests),
               2 iterations, same weights and views;
@@ -55,6 +57,11 @@ Each phase prints one JSON line with the card's name and power limit.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
+runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
+the recipe's learning rates, from the same weights and frames, and prints
+the losses of every step.
 """
 
 import json
@@ -77,6 +84,13 @@ SPIN_CYCLES = 2_000_000  # ~1 ms of spin ahead of each sample's calls
 C = 19
 IGNORE = 255
 FLAGSHIP = (8, 512, 1024)
+# loader sizes of the ABN recipe's frames: GTA5 (data/lists.py:71) and
+# Cityscapes; 12 source + 8 target frames (TRAIN.BATCH_SIZE, NUM_GROUPS),
+# cropped to ABN_CROP
+ABN_SRC = (12, 1052, 1914)
+ABN_TGT = (8, 1024, 2048)
+ABN_CROP = (640, 640)
+INFER_HW = (1024, 2048)  # one Cityscapes val frame
 # published device-memory rate of the card, by product (NVIDIA data sheets)
 MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H100", 3.35e12))
 F32_PEAK = 67e12     # H100 SXM, float32 outside the tensor cores
@@ -120,7 +134,7 @@ def abn_step_config():
         mean, std, (0.481, 0.479, 0.465), (0.243, 0.239, 0.237),
         (0.300, 0.344, 0.297), (0.175, 0.180, 0.177))
     return steps.StepConfig(
-        num_classes=C, crop_hw=(640, 640), group_size=1, lr_target=0.0,
+        num_classes=C, crop_hw=ABN_CROP, group_size=1, lr_target=0.0,
         refine_dtype="bfloat16", refine_res="stride8", ce_impl="kernel",
         src_scale=(0.5, 2.0), src_jitter=0.5, src_mean=src_mean,
         src_std=src_std, guided_hflip=False, tgt_jitter=0.5, mean=mean,
@@ -207,34 +221,54 @@ def in_turns(fns, rounds=2):
     return {k: statistics.median(v) for k, v in samples.items()}
 
 
-def kernel_inputs(dtype, ignore_frac, device):
+def kernel_inputs(dtype, ignore_frac, device, shape=FLAGSHIP, pad_rows=0):
+    """Logits ``[N, C]`` (N = prod(shape)), int32 labels with a share
+    ``ignore_frac`` ignored and the last ``pad_rows`` rows of every image
+    ignored (a crop's padding), and an f32 upstream gradient ``[N]``."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    n = math.prod(FLAGSHIP)
-    x = (torch.randn(*FLAGSHIP, C, generator=gen, device=device) * 3).to(dtype)
-    lbl = torch.randint(0, C, FLAGSHIP, generator=gen, device=device,
+    n = math.prod(shape)
+    x = (torch.randn(*shape, C, generator=gen, device=device) * 3).to(dtype)
+    lbl = torch.randint(0, C, shape, generator=gen, device=device,
                         dtype=torch.int32)
-    lbl[torch.rand(FLAGSHIP, generator=gen, device=device) < ignore_frac] = \
+    lbl[torch.rand(shape, generator=gen, device=device) < ignore_frac] = \
         IGNORE
+    if pad_rows:
+        lbl[:, -pad_rows:] = IGNORE
     g = torch.rand(n, generator=gen, device=device)
     return x.view(n, C), lbl.view(n), g
 
 
-def check_kernels(ce, device):
-    """Each case: (name, dtype, ignore_frac, fwd tol, bwd tol).  Tolerances
-    are absolute.  The NLL of these logits reaches ~25, so 1e-4 is a few
-    f32 ulps of it.  dx lies in [-1, 1]: 1e-6 covers f32 exp/division
-    roundoff; in bf16 both sides round an f32 value that may differ in its
-    last bits, so one bf16 ulp at 1 (2^-8) bounds the difference."""
+def kernel_cases():
+    """(name, dtype, ignore_frac, shape, pad_rows, fwd tol, bwd tol): the
+    SAC path's shape in f32 and bf16 and with every label ignored, then the
+    ABN path's source (12x640x640) and target (8x640x640) rows in f32 with
+    the ABN label mix (10% ignored, and 80 rows of crop padding: the crop
+    of a frame shrunk below 640 rows)."""
     import torch
 
-    cases = [("f32", torch.float32, 0.2, 1e-4, 1e-6),
-             ("bf16", torch.bfloat16, 0.2, 1e-4, 2.0 ** -8),
-             ("all_ignored", torch.float32, 1.0, 0.0, 0.0)]
+    return [("f32", torch.float32, 0.2, FLAGSHIP, 0, 1e-4, 1e-6),
+            ("bf16", torch.bfloat16, 0.2, FLAGSHIP, 0, 1e-4, 2.0 ** -8),
+            ("all_ignored", torch.float32, 1.0, FLAGSHIP, 0, 0.0, 0.0),
+            ("abn_src_f32", torch.float32, 0.1, (ABN_SRC[0], *ABN_CROP), 80,
+             1e-4, 1e-6),
+            ("abn_tgt_f32", torch.float32, 0.1, (ABN_TGT[0], *ABN_CROP), 80,
+             1e-4, 1e-6)]
+
+
+def check_kernels(ce, device):
+    """Each of ``kernel_cases()`` through both kernels against their plain
+    versions.  Tolerances are absolute.  The NLL of these logits reaches
+    ~25, so 1e-4 is a few f32 ulps of it.  dx lies in [-1, 1]: 1e-6 covers
+    f32 exp/division roundoff; in bf16 both sides round an f32 value that
+    may differ in its last bits, so one bf16 ulp at 1 (2^-8) bounds the
+    difference."""
+    import torch
+
     results = []
-    for name, dtype, frac, tol_f, tol_b in cases:
-        x2, lbl, g = kernel_inputs(dtype, frac, device)
+    for name, dtype, frac, shape, pad, tol_f, tol_b in kernel_cases():
+        x2, lbl, g = kernel_inputs(dtype, frac, device, shape, pad)
         nll = ce.nll_fwd(x2, lbl)
         dx = ce.nll_bwd(x2, lbl, g)
         if x2.is_cuda:
@@ -252,8 +286,8 @@ def check_kernels(ce, device):
                 % (kern, name, err, tol, ce.__name__))
             need(err <= tol, "%s %s disagrees with its plain version: "
                  "%.3e > %.1e" % (kern, name, err, tol))
-            results.append(dict(kernel=kern, case=name, max_abs_err=err,
-                                tol=tol))
+            results.append(dict(kernel=kern, case=name, rows=x2.shape[0],
+                                max_abs_err=err, tol=tol))
         del x2, lbl, g, nll, dx
     return results
 
@@ -648,13 +682,6 @@ def check_abn_agreement(device, card=None):
 # phase 6: the flagship ABN step
 # ---------------------------------------------------------------------------
 
-# loader sizes of the ABN recipe's frames: GTA5 (data/lists.py:71) and
-# Cityscapes; 12 source + 8 target frames (TRAIN.BATCH_SIZE, NUM_GROUPS)
-ABN_SRC = (12, 1052, 1914)
-ABN_TGT = (8, 1024, 2048)
-INFER_HW = (1024, 2048)  # one Cityscapes val frame
-
-
 def abn_batch(device):
     """uint8 frames from ``RandomState(SEED)``, labels 0..18 with about 10%
     ignored."""
@@ -735,21 +762,49 @@ def run_abn(ce, ce_triton, device, card):
 
 
 def augment_ms(scfg, batch, gen):
-    """Host time of the ABN step's augmentation alone (source and target
-    frames through the source pipeline), median of 3 after a warm-up."""
-    from dasac_tpu_torch.aug import pipelines
+    """Host time of the ABN step's augmentation alone (``augment_abn``, the
+    function the step calls), median of 3 after a warm-up."""
+    from dasac_tpu_torch.train import steps
 
-    def run():
-        for (images, labels), (mean, std) in (
-                (batch[:2], (scfg.src_mean, scfg.src_std)),
-                (batch[2:], (scfg.mean, scfg.std))):
-            pipelines.augment_source_batch(
-                gen, images, labels, crop_hw=scfg.crop_hw,
-                scale_range=scfg.src_scale, hflip=scfg.src_hflip,
-                jitter=scfg.src_jitter, blur=scfg.src_blur, mean=mean,
-                std=std)
+    return median_ms(lambda: steps.augment_abn(scfg, gen, batch))[0]
 
-    return median_ms(run)[0]
+
+def run_abn_lr_witness(device, card, scales=(1.0, 0.1, 0.01, 0.001)):
+    """The flagship ABN step at the recipe's learning rates scaled by each
+    of ``scales``, every run from the same weights, frames and generator
+    seed: ``N_STEPS`` steps each, and the losses of every step.  With
+    random labels the best the model can do is the class prior (source CE
+    about ln 19 = 2.94); a correct gradient at a small enough step brings
+    the loss down towards it.  Run by ``--abn-lr-witness`` only."""
+    import torch
+
+    from dasac_tpu_torch.train import steps
+
+    scfg = abn_step_config()
+    batch = abn_batch(device)
+    runs = []
+    for s in scales:
+        state = flagship_state(device)
+        for group in state.optimizer.param_groups:
+            group["lr"] *= s
+        step = steps.make_abn_step(scfg, device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        rows = []
+        for i in range(N_STEPS):
+            rows.append({k: float(v) for k, v in
+                         step(state, batch, gen).items()})
+            need(all(math.isfinite(v) for v in rows[-1].values()),
+                 "lr x%g step %d: %s" % (s, i, rows[-1]))
+        runs.append(dict(lr_scale=s, lrs=[g["lr"] for g in
+                                          state.optimizer.param_groups],
+                         losses=rows))
+        log("abn_lr_witness lr x%g: src_loss_ce %s" % (
+            s, " ".join("%.3f" % r["src_loss_ce"] for r in rows)))
+        del state, step
+        torch.cuda.empty_cache()
+    out = dict(phase="abn_lr_witness", card=card, steps=N_STEPS, runs=runs)
+    log("abn_lr_witness: %s" % json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -945,9 +1000,19 @@ def run_infer(state, device, card):
 
 # ---------------------------------------------------------------------------
 
-def main():
+def main(argv=()):
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(
+        description="On-card smoke of the PyTorch/CUDA port.")
+    parser.add_argument(
+        "--abn-lr-witness", action="store_true",
+        help="instead of the phases, run the flagship ABN step for %d steps "
+             "at 1, 0.1, 0.01 and 0.001 times the recipe's learning rates "
+             "and print the losses" % N_STEPS)
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -966,11 +1031,16 @@ def main():
     log("card: %s" % card)
     log("torch: %s, cuda %s, %s x %d" % (torch.__version__, torch.version.cuda,
                                          name, torch.cuda.device_count()))
+    if args.abn_lr_witness:
+        torch.backends.cudnn.benchmark = True
+        run_abn_lr_witness(device, card)
+        return 0
 
     ptxas = build_cuda(ce)
     paths_before = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
     checks = check_kernels(ce, device)
-    need(all(ce.PATH_LAUNCHES[k]["bulk"] == paths_before[k]["bulk"] + 3
+    need(all(ce.PATH_LAUNCHES[k]["bulk"]
+             == paths_before[k]["bulk"] + len(kernel_cases())
              for k in ce.PATH_LAUNCHES),
          "kernel checks off the bulk path: %s" % ce.PATH_LAUNCHES)
     triton_checks = check_kernels(ce_triton, device)
@@ -1029,4 +1099,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -159,7 +159,7 @@ def _load_momentum(optimizer, opt_dict):
             raise ValueError("param-group size mismatch: %d saved vs %d"
                              % (len(saved["params"]), len(group["params"])))
         for pid, p in zip(saved["params"], group["params"]):
-            buf = st.get(pid, st.get(str(pid), {})).get("momentum_buffer")
+            buf = st.get(pid, {}).get("momentum_buffer")
             if buf is None:
                 continue
             if tuple(buf.shape) != tuple(p.shape):

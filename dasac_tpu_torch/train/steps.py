@@ -310,23 +310,29 @@ def make_abn_step(scfg: StepConfig, device=None):
     device = resolve_device(device)
     frames_step = make_abn_frames_step(scfg)
 
-    def augment(generator, images, labels, mean, std):
-        return pipelines.augment_source_batch(
-            generator, images, labels, crop_hw=scfg.crop_hw,
-            scale_range=scfg.src_scale, hflip=scfg.src_hflip,
-            jitter=scfg.src_jitter, blur=scfg.src_blur, mean=mean, std=std)
-
     def step(state, batch, generator):
-        src_images, src_labels, tgt_images, tgt_labels = _to_device(
-            device, *batch)
-        src_frames, src_lbls = augment(generator, src_images, src_labels,
-                                       scfg.src_mean, scfg.src_std)
-        tgt_frames, tgt_lbls = augment(generator, tgt_images, tgt_labels,
-                                       scfg.mean, scfg.std)
-        return frames_step(state, src_frames, src_lbls, tgt_frames, tgt_lbls,
+        return frames_step(state, *augment_abn(scfg, generator,
+                                               _to_device(device, *batch)),
                            generator)
 
     return step
+
+
+def augment_abn(scfg: StepConfig, generator, batch):
+    """The ABN step's augmentation: ``batch`` = (src_images, src_labels,
+    tgt_images, tgt_labels) on one device -> (src_frames, src_lbls,
+    tgt_frames, tgt_lbls).  Both halves go through the source pipeline; the
+    source frames are normalized with ``src_mean``/``src_std``, the target
+    frames with the standard ``mean``/``std``."""
+    out = ()
+    for images, labels, mean, std in (
+            (*batch[:2], scfg.src_mean, scfg.src_std),
+            (*batch[2:], scfg.mean, scfg.std)):
+        out += pipelines.augment_source_batch(
+            generator, images, labels, crop_hw=scfg.crop_hw,
+            scale_range=scfg.src_scale, hflip=scfg.src_hflip,
+            jitter=scfg.src_jitter, blur=scfg.src_blur, mean=mean, std=std)
+    return out
 
 
 def make_abn_frames_step(scfg: StepConfig):
