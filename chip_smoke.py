@@ -52,11 +52,33 @@ no result line:
               pixel counts and each timed call's host and device ms;
   9. infer    ``make_infer_fn`` on one 1024x2048 frame: one scale with
               full-resolution fusion (held against the argmax of the
-              probabilities), and 3 scales with flip fused at stride 8.
+              probabilities), and 3 scales with flip fused at stride 8;
+ 10. train    the training program through its CLI
+              (``dasac_tpu_torch.train.cli.main``), in this process, on a
+              synthetic root written under ``build/smoke_train`` (removed
+              after) by the port's PNG encoder at the real frame sizes: 24
+              GTA-sized source frames (1052x1914), 16 Cityscapes-sized
+              target frames and 4 frames for every val split (1024x2048),
+              labels 0..18 with ~10% ignored; with the decode time of one
+              1024x2048 frame under each PNG filter and from a pack.  Then
+              the recipe's stages with ``TPU.CE_IMPL pallas``: ABN
+              (``configs/deeplabv2_resnet101.yaml``, 2 epochs x 2 steps
+              and one validation round), SAC from the ABN ``last.pth``
+              (``configs/deeplabv2_resnet101_train.yaml``, epochs 2 and 3, 3
+              steps each, one validation round with the four-layer target
+              validation) and ``--resume auto`` of the SAC run (epoch 4,
+              from the saved parameters and momentum).  Each stage is
+              measured from outside the trainer (a subclass times each
+              step call, each metrics readback, each loader wait, each
+              validation and each snapshot) and checked: finite losses, 2 +
+              1 CE launches per ABN step and 2 + 2 per SAC step all on the
+              bulk path, the events of every val split and of the target
+              split, the best snapshot and ``last.pth``, the start epoch.
 Each phase prints one JSON line with the card's name and power limit.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
-line is ``{"ok": true, "device": {...}}``.
+line is ``{"ok": true, "device": {...}}``; the CUDA rows of the kernels
+line carry the trainer's launches (``launches_train``).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -552,7 +574,7 @@ def run_slice(ce, ce_triton, device, card):
                    hw=[h, w]))
     log("slice: %s" % json.dumps(out))
     profile_steps(step, state, batch, gen, card)
-    return launches, paths, triton_launches
+    return launches, paths, triton_launches, out["step_ms_median"]
 
 
 # kernel-name fragments -> the part of the step they belong to
@@ -698,8 +720,8 @@ def abn_batch(device):
 
 def run_abn(ce, ce_triton, device, card):
     """8 ABN steps (2 warm-up) on the flagship model, then 2 more under the
-    profiler.  Returns the state and the launch counts of the 8 steps (CUDA
-    by kernel, CUDA by path, Triton by kernel)."""
+    profiler.  Returns the state, the launch counts of the 8 steps (CUDA
+    by kernel, CUDA by path, Triton by kernel) and the step median."""
     import torch
 
     from dasac_tpu_torch.train import steps
@@ -758,7 +780,7 @@ def run_abn(ce, ce_triton, device, card):
     profile_steps(step, state, batch, gen, card, label="abn_profile")
     log("abn_augment: %s" % json.dumps(dict(
         card=card, augment_ms=augment_ms(scfg, batch, gen))))
-    return state, launches, paths, triton_launches
+    return state, launches, paths, triton_launches, out["step_ms_median"]
 
 
 def augment_ms(scfg, batch, gen):
@@ -999,6 +1021,440 @@ def run_infer(state, device, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the training program, from files on disk
+# ---------------------------------------------------------------------------
+
+# frames of the synthetic root: GTA-sized source, Cityscapes-sized target
+# and val (every val split), labels 0..18 with ~10% ignored
+TRAIN_SRC = (24, 1052, 1914)
+TRAIN_TGT = (8, 1024, 2048)
+TRAIN_VAL = (4, 1024, 2048)
+TRAIN_IGNORE = 0.1
+TRAIN_CFG = {"abn": "configs/deeplabv2_resnet101.yaml",
+             "sac": "configs/deeplabv2_resnet101_train.yaml"}
+TRAIN_SETS = []  # extra --set pairs after the stage's own (none here)
+
+
+def write_train_root(root, card):
+    """The synthetic root, written by the port's own PNG encoder (filter 0);
+    then the decode time of one Cityscapes-sized frame written with each of
+    the five PNG filters, and of the same frame read from a memmap pack."""
+    import shutil
+
+    from dasac_tpu_torch.data import host_loader, lists, packed, png, synth
+
+    t0 = time.perf_counter()
+    synth.make_synthetic_root(
+        root, n_train_src=TRAIN_SRC[0], n_train_tgt=TRAIN_TGT[0],
+        n_val=TRAIN_VAL[0], src_hw=TRAIN_SRC[1:], tgt_hw=TRAIN_TGT[1:],
+        val_hw=TRAIN_VAL[1:], ignore_frac=TRAIN_IGNORE, seed=SEED)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(root) for f in fs)
+    images, masks = lists.read_split(root, "val_cityscapes")
+    frame = png.to_rgb(png.read(images[0]))
+    decode_ms = {}
+    scratch = os.path.join(root, "..", "smoke_codec")
+    os.makedirs(scratch, exist_ok=True)
+    try:
+        for f in range(5):
+            path = os.path.join(scratch, "f%d.png" % f)
+            png.write(path, frame, filter_type=f)
+            t0 = time.perf_counter()
+            got = png.to_rgb(png.read(path))
+            decode_ms[f] = (time.perf_counter() - t0) * 1e3
+            need(np.array_equal(got, frame), "PNG filter %d round trip" % f)
+        hdr = packed.write_pack(host_loader.SegDataset(
+            images, masks, TRAIN_VAL[1:], "center_crop"), "val_cityscapes",
+            scratch, verbose=False)
+        ds = packed.PackedDataset(hdr)
+        t0 = time.perf_counter()
+        got = ds.load(1)[0]
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        need(np.array_equal(got, png.to_rgb(png.read(images[1]))),
+             "the pack holds another frame than the PNG")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    out = dict(phase="train_root", card=card, root_write_s=write_s,
+               root_bytes=nbytes, frames=dict(source=list(TRAIN_SRC),
+                                              target=list(TRAIN_TGT),
+                                              val=list(TRAIN_VAL)),
+               ignore_frac=TRAIN_IGNORE, host_cpus=os.cpu_count(),
+               decode_ms_by_filter=decode_ms, pack_load_ms=pack_ms,
+               frame_hw=list(frame.shape[:2]))
+    log("train_root: %s" % json.dumps(out))
+    return out
+
+
+class _TimedLoader:
+    """A loader whose every ``next`` is timed into ``waits`` (seconds)."""
+
+    def __init__(self, loader, waits):
+        self.loader, self.waits = loader, waits
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield item
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, device, into):
+    """``fn`` with the host ms of each call (ending in a synchronize)
+    appended to ``into``."""
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        _sync(device)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return call
+
+
+def measured_trainer(probe, check_resume=None):
+    """A subclass of the port's ``Trainer`` that measures it from outside:
+    each ``train_step`` call (host time in the call, and on the card a CUDA
+    event before and after it), each wait on the train and val loaders,
+    each validation with its eval calls and its panel writes, and each
+    snapshot write.  ``check_resume(trainer)`` runs once the trainer is
+    built."""
+    import torch
+
+    from dasac_tpu_torch.train import loop
+
+    class MeasuredTrainer(loop.Trainer):
+        def __init__(self, *a, **k):
+            t0 = time.perf_counter()
+            super().__init__(*a, **k)
+            probe["setup_s"] = time.perf_counter() - t0
+            probe["start_epoch"] = self.start_epoch
+            if check_resume is not None:
+                check_resume(self)
+            step = self.train_step
+
+            def timed_step(state, batch, gen):
+                cuda = self.device.type == "cuda"
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2 if cuda else 0)]
+                t0 = time.perf_counter()
+                if cuda:
+                    events[0].record()
+                out = step(state, batch, gen)
+                if cuda:
+                    events[1].record()
+                    probe["events"].append(events)
+                probe["host_ms"].append((time.perf_counter() - t0) * 1e3)
+                probe["step"], probe["batch"] = step, batch
+                return out
+
+            self.train_step = timed_step
+            train_loaders = self.loaders.train_loaders
+
+            def timed_loaders(epoch, replicated_eval=False):
+                src, tgt = train_loaders(epoch, replicated_eval)
+                if replicated_eval:   # target validation
+                    return src, _TimedLoader(tgt, probe["val_wait"])
+                probe["epoch_starts"].append(len(probe["host_ms"]))
+                return (_TimedLoader(src, probe["wait_src"]),
+                        _TimedLoader(tgt, probe["wait_tgt"]))
+
+            self.loaders.train_loaders = timed_loaders
+            val_loader = self.loaders.val_loader
+            self.loaders.val_loader = lambda *a, **k: _TimedLoader(
+                val_loader(*a, **k), probe["val_wait"])
+            for name in ("eval_step", "target_eval_step", "visual_step"):
+                setattr(self, name, _timed(getattr(self, name), self.device,
+                                           probe["val_eval"]))
+            for w in (self.writer, self.writer_target,
+                      *self.writer_val.values()):
+                w.add_image = _timed(w.add_image, self.device,
+                                     probe["val_panel"])
+            ck = self.checkpointer
+            for name in ("save", "save_latest"):
+                fn = getattr(ck, name)
+
+                def timed(*a, _fn=fn, **k):
+                    t0 = time.perf_counter()
+                    out = _fn(*a, **k)
+                    probe["save_ms"].append((time.perf_counter() - t0) * 1e3)
+                    return out
+
+                setattr(ck, name, timed)
+
+        def validation(self, epoch, split, max_batches=None,
+                       target_mode=False):
+            for k in ("val_wait", "val_eval", "val_panel"):
+                probe[k].clear()
+            t0 = time.perf_counter()
+            out = super().validation(epoch, split, max_batches, target_mode)
+            _sync(self.device)
+            key = ("target:" if target_mode else "") + split
+            probe["val_ms"][key] = dict(
+                total=(time.perf_counter() - t0) * 1e3,
+                loader_wait=sum(probe["val_wait"]) * 1e3,
+                eval_calls=list(probe["val_eval"]),
+                panel_writes=list(probe["val_panel"]))
+            return out
+
+    return MeasuredTrainer
+
+
+def _step_times(probe):
+    """(step ms, loader-wait ms) per step.  On the card a step's time is the
+    CUDA-event time from the event recorded as the host entered
+    ``train_step`` to the one recorded as it left: the device reaches the
+    first when it is done with the step before (or at once, when it was
+    idle), so this is the step's share of the device's timeline, with any
+    time the device waited for the host's enqueue.  On the CPU it is the
+    host time in the call."""
+    if probe["events"]:
+        steps = [a.elapsed_time(b) for a, b in probe["events"]]
+    else:
+        steps = list(probe["host_ms"])
+    waits = [(a + b) * 1e3 for a, b in zip(probe["wait_src"],
+                                          probe["wait_tgt"])]
+    need(len(steps) == len(waits), "%d steps, %d loader waits"
+         % (len(steps), len(waits)))
+    return steps, waits
+
+
+def _events(logdir):
+    """{writer: {tag: [(step, value)]}} from the run's events.jsonl files."""
+    out = {}
+    for d, _, files in os.walk(logdir):
+        if "events.jsonl" in files:
+            tags = out.setdefault(os.path.basename(d), {})
+            with open(os.path.join(d, "events.jsonl")) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    tags.setdefault(rec["tag"], []).append(
+                        (rec["step"], rec["value"]))
+    return out
+
+
+def fed_step_ms(trainer, probe, device, n=4, on_device=False):
+    """The same step on the stage's last batch, ``n`` times in a row with
+    the trainer's one-step-late readback and no loader running: CUDA-event
+    ms of each (None off the card).  The batch is held in host memory, as
+    the loaders give it, or with ``on_device`` already on the card.
+    Against the stage's steps the first shows what the loaders' threads
+    cost; against each other, what the pageable H2D copy (which also waits
+    for the step before) costs; the second against the bare step (phases 4
+    and 6), what the loader-sized frames cost.  Run after the stage, on its
+    final state."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    step, batch = probe["step"], probe["batch"]
+    if on_device:
+        batch = tuple(torch.as_tensor(a).to(device) for a in batch)
+    times, pending = [], None
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        metrics = step(trainer.state, batch, trainer.generator)
+        ev[1].record()
+        if pending is not None:
+            float(next(iter(pending.values())))
+        pending = metrics
+        times.append(ev)
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in times]
+
+
+def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
+                    device, card, bare_ms=None, check_resume=None):
+    """One ``cli.main`` run, measured from outside the trainer; checks its
+    losses, CE launches, events, snapshots and start epoch."""
+    import torch
+
+    from dasac_tpu_torch.train import cli, loop
+
+    probe = dict(events=[], host_ms=[], wait_src=[], wait_tgt=[], val_ms={},
+                 save_ms=[], val_wait=[], val_eval=[], val_panel=[],
+                 epoch_starts=[])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(ce, ce_triton)
+    original = loop.Trainer
+    loop.Trainer = measured_trainer(probe, check_resume)
+    t0 = time.perf_counter()
+    try:
+        trainer = cli.main(argv, device=None if device.type == "cuda"
+                           else device)
+    finally:
+        loop.Trainer = original
+    wall_s = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    baseline = trainer.cfg.MODEL.BASELINE
+    n_steps = len(probe["host_ms"])
+    need(probe["start_epoch"] == want_start,
+         "%s: started at epoch %d, want %d" % (stage, probe["start_epoch"],
+                                              want_start))
+    need(n_steps == want_steps, "%s: %d steps, want %d" % (stage, n_steps,
+                                                          want_steps))
+    per_step = ({"nll_fwd": 2, "nll_bwd": 1} if baseline
+                else {"nll_fwd": 2, "nll_bwd": 2})
+    launches, paths, triton_launches = read_counts(
+        ce, ce_triton, {k: v * n_steps for k, v in per_step.items()})
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+
+    logdir, snapdir = trainer.args.logdir, trainer.args.snapshot_dir
+    events = _events(logdir)
+    losses = {t: v for t, v in events.get("train", {}).items()
+              if t.startswith("train_epoch/")}
+    loss_keys = (("train_epoch/src_loss_ce", "train_epoch/loss_ce")
+                 if baseline else ("train_epoch/src_loss_ce",
+                                   "train_epoch/self_ce"))
+    for t in loss_keys:
+        need(t in losses, "%s: no %s scalar" % (stage, t))
+    need(all(math.isfinite(v) for vals in losses.values() for _, v in vals),
+         "%s: non-finite epoch losses %s" % (stage, losses))
+    validated = any(probe["val_ms"])
+    if validated:
+        for split in trainer.loaders.val:
+            need("logits_up_all/mIoU" in events.get(split, {}),
+                 "%s: no mIoU for %s" % (stage, split))
+        layers = ("logits_up",) if baseline else (
+            "logits_up", "teacher_init", "teacher_refined", "teacher_labels")
+        for layer in layers:
+            need(layer + "_all/mIoU" in events.get("train_target", {}),
+                 "%s: no train-target %s mIoU" % (stage, layer))
+        need(any(f.startswith("epoch") and f.endswith(".pth")
+                 for f in os.listdir(snapdir)), "%s: no best snapshot" % stage)
+    need(os.path.isfile(os.path.join(snapdir, "last.pth")),
+         "%s: no last.pth" % stage)
+
+    steps, waits = _step_times(probe)
+    # an epoch's first step follows the loader's start (and validation):
+    # the steady steps are the others
+    steady = [t for k, t in enumerate(steps)
+              if k not in probe["epoch_starts"]]
+    fed = fed_step_ms(trainer, probe, device)
+    fed_dev = fed_step_ms(trainer, probe, device, on_device=True)
+    out = dict(
+        phase="train", stage=stage, card=card, argv=argv, wall_s=wall_s,
+        setup_s=probe["setup_s"], start_epoch=probe["start_epoch"],
+        steps=n_steps, step_ms=steps, loader_wait_ms=waits,
+        host_ms_in_step=probe["host_ms"], epoch_first_steps=sorted(set(
+            probe["epoch_starts"])),
+        step_ms_median=statistics.median(steps[1:]),
+        steady_step_ms_median=statistics.median(steady),
+        loader_wait_ms_median=statistics.median(waits[1:]),
+        bare_step_ms_median=bare_ms, fed_step_ms=fed,
+        fed_step_ms_median=statistics.median(fed[1:]) if fed else None,
+        fed_on_device_step_ms=fed_dev,
+        fed_on_device_step_ms_median=(statistics.median(fed_dev[1:])
+                                      if fed_dev else None),
+        val_ms=probe["val_ms"],
+        snapshot_save_ms=probe["save_ms"], max_memory_allocated=peak,
+        epoch_losses={t: v for t, v in losses.items()
+                      if not t.startswith("train_epoch/self_ce_class")},
+        miou={w: tags["logits_up_all/mIoU"] for w, tags in events.items()
+              if "logits_up_all/mIoU" in tags},
+        ce_launches=launches, ce_launches_by_path=paths,
+        triton_launches=triton_launches)
+    log("train %s: %s" % (stage, json.dumps(out)))
+    return trainer, out
+
+
+def run_train(ce, ce_triton, device, card, bare_ms=None):
+    """Phase 10: the trainer CLI on a synthetic root of real frame sizes;
+    ABN (2 epochs x 2 steps, one validation round), SAC from the ABN
+    snapshot (epochs 2 and 3, 3 steps each, one validation round), and
+    ``--resume auto`` of the SAC run (epoch 4).  Returns the CE launches of
+    each stage."""
+    import shutil
+
+    import torch
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_train")
+    root = os.path.join(base, "root")
+    shutil.rmtree(base, ignore_errors=True)
+    bare_ms = bare_ms or {}
+    try:
+        write_train_root(root, card)
+        common = ["--snapshot-dir", os.path.join(base, "snap"), "--logdir",
+                  os.path.join(base, "logs"), "--exp", "smoke"]
+        sets = ["DATASET.ROOT", root, "TPU.CE_IMPL", "pallas",
+                "LOG.ITER_VAL", "1", "LOG.ITER_TARGET", "1"]
+        stages = {}
+        abn, stages["abn"] = run_train_stage(
+            ce, ce_triton, "abn",
+            ["--cfg", TRAIN_CFG["abn"], *common, "--run", "abn", "--set",
+             *sets, "MODEL.BASELINE", "True", "TRAIN.NUM_EPOCHS", "1",
+             *TRAIN_SETS], 0, 4, device, card, bare_ms.get("abn"))
+        abn_last = os.path.join(abn.args.snapshot_dir, "last.pth")
+        del abn
+        torch.cuda.empty_cache()
+        sac, stages["sac"] = run_train_stage(
+            ce, ce_triton, "sac",
+            ["--cfg", TRAIN_CFG["sac"], *common, "--run", "sac",
+             "--resume", abn_last, "--set", *sets, "TRAIN.NUM_EPOCHS", "3",
+             *TRAIN_SETS], 2, 6, device, card, bare_ms.get("sac"))
+        sac_last = os.path.join(sac.args.snapshot_dir, "last.pth")
+        del sac
+        torch.cuda.empty_cache()
+        saved = torch.load(sac_last, map_location="cpu", weights_only=True)
+        need(saved["epoch"] == 4, "the SAC run saved epoch %d, want 4"
+             % saved["epoch"])
+
+        def check_resume(trainer):
+            """The resumed state is the saved one: parameters, statistics,
+            teacher, running_conf and SGD momentum."""
+            state = trainer.state
+            for k, v in state.model.state_dict().items():
+                need(torch.equal(v.cpu(), saved["model"][
+                    "module.backbone." + k]), "resume: student %s" % k)
+            for k, v in {**state.teacher_params,
+                         **state.teacher_stats}.items():
+                need(torch.equal(v.cpu(), saved["model"][
+                    "module.slow_net." + k]), "resume: teacher %s" % k)
+            need(torch.equal(state.running_conf.cpu(),
+                             saved["model"]["module.running_conf"]),
+                 "resume: running_conf")
+            opt = state.optimizer
+            params = [p for g in opt.param_groups for p in g["params"]]
+            for i, p in enumerate(params):
+                need(torch.equal(opt.state[p]["momentum_buffer"].cpu(),
+                                 saved["opt"]["state"][i]["momentum_buffer"]),
+                     "resume: momentum of parameter %d" % i)
+
+        resumed, stages["resume"] = run_train_stage(
+            ce, ce_triton, "resume",
+            ["--cfg", TRAIN_CFG["sac"], *common, "--run", "sac",
+             "--resume", "auto", "--set", *sets, "TRAIN.NUM_EPOCHS", "4",
+             *TRAIN_SETS], 4, 3, device, card, bare_ms.get("sac"),
+            check_resume)
+        del resumed, saved
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return stages
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=()):
     import argparse
@@ -1047,16 +1503,21 @@ def main(argv=()):
     timing = time_kernels(ce, ce_triton, device, name)
     torch.cuda.empty_cache()
     check_agreement(device)
-    launches, paths, triton_launches = run_slice(ce, ce_triton, device, card)
+    launches, paths, triton_launches, sac_ms = run_slice(ce, ce_triton,
+                                                         device, card)
     torch.cuda.empty_cache()
     check_abn_agreement(device, card)
-    abn_state, abn_launches, abn_paths, abn_triton = run_abn(
+    abn_state, abn_launches, abn_paths, abn_triton, abn_ms = run_abn(
         ce, ce_triton, device, card)
     sac_state = run_handoff(ce, ce_triton, abn_state, device, card)
     del abn_state
     torch.cuda.empty_cache()
     run_eval(sac_state, device, card)
     run_infer(sac_state, device, card)
+    del sac_state
+    torch.cuda.empty_cache()
+    train = run_train(ce, ce_triton, device, card,
+                      bare_ms={"sac": sac_ms, "abn": abn_ms})
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -1084,6 +1545,12 @@ def main(argv=()):
                                      else abn_triton)[k],
                        launches_by_path_abn=(abn_paths[k] if route == "cuda"
                                              else None))
+            # the trainer CLI's three stages (phase 10)
+            by_stage = {st: o["ce_launches" if route == "cuda"
+                              else "triton_launches"][k]
+                        for st, o in train.items()}
+            row.update(launches_train=sum(by_stage.values()),
+                       launches_train_by_stage=by_stage)
             if route == "cuda":
                 row.update(triton_ms=t["triton_ms"],
                            launches_by_path=paths[k],

@@ -9,6 +9,9 @@ modules use.  Conv ``kernel`` HWIO becomes ``weight`` OIHW; BN ``scale`` /
 converter walks whatever blocks the tree holds, so shallow trunks convert
 too.  The key map is this package's own copy of the one in
 ``dasac_tpu/nn/convert.py``.
+
+:func:`load_torchvision_backbone` loads a torchvision ImageNet backbone
+(``MODEL.INIT_MODEL``) into the port's ResNet-101 trunk.
 """
 
 import re
@@ -89,3 +92,45 @@ def train_state_from_jax(jax_state, arch, state):
     state.slow_init = int(np.asarray(jax_state["slow_init"]) > 0)
     state.step = int(np.asarray(jax_state["step"]))
     return state
+
+
+# torchvision resnet101 trunk keys, as dasac_tpu/nn/convert.py maps them
+# ("torchvision" style): no conv biases, the ImageNet classifier (fc.*) has
+# no counterpart
+_TV_PARTS = r"(?:weight|bias|running_mean|running_var)"
+_TV_RESNET_KEY = re.compile(
+    r"^(?:conv1\.weight|bn1\.{p}"
+    r"|layer[1-4]\.\d+\.(?:conv[123]\.weight|bn[123]\.{p}"
+    r"|downsample\.0\.weight|downsample\.1\.{p}))$".format(p=_TV_PARTS))
+
+
+def load_torchvision_backbone(model, state_dict, arch):
+    """Copy a torchvision ImageNet ``resnet101`` ``state_dict``
+    (``conv1.weight``, ``layer1.0.bn1.running_mean``, ...) into ``model``'s
+    trunk in place, with ``strict=False`` semantics: the counterpart of
+    ``dasac_tpu``'s ``apply_state_dict(variables, sd, arch, "torchvision")``.
+
+    ``num_batches_tracked`` entries are passed over; keys with no
+    counterpart in ``model`` (``fc.*``, blocks a shallower trunk lacks) are
+    skipped and listed.  A shape mismatch raises.  Returns ``(n_loaded,
+    skipped)``."""
+    if arch.lower() != "deeplabv2_resnet101":
+        raise ValueError("no torchvision key map for arch %r" % arch)
+    own = model.state_dict()
+    n_loaded, skipped = 0, []
+    with torch.no_grad():
+        for key, val in state_dict.items():
+            if key.endswith("num_batches_tracked"):
+                continue
+            name = "model." + key
+            if not _TV_RESNET_KEY.match(key) or name not in own:
+                skipped.append(key)
+                continue
+            val = (val.detach().float().cpu() if isinstance(val, torch.Tensor)
+                   else torch.from_numpy(np.array(val, np.float32)))
+            if tuple(own[name].shape) != tuple(val.shape):
+                raise ValueError("Shape mismatch at {}: {} vs {}".format(
+                    key, tuple(own[name].shape), tuple(val.shape)))
+            own[name].copy_(val)
+            n_loaded += 1
+    return n_loaded, skipped

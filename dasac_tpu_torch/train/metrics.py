@@ -14,22 +14,23 @@ import torch
 def confusion_matrix(pred, gt, num_classes, ignore=255):
     """[..., H, W] integer predictions and ground truth -> int64 [C, C].
 
-    A pixel is counted at ``(gt, pred)`` when ``gt`` is not ``ignore`` and
-    both lie in ``[0, C)``; every other pixel goes to one extra bin that is
-    sliced off, so there is no boolean indexing.  For argmax predictions
-    this equals the JAX version's float-weighted ``bincount``.  A
-    prediction outside ``[0, C)`` (a pseudo-label left at 255) is not
-    counted; the JAX version folds ``gt*C + 255`` into another cell when
-    that index is below ``C*C`` (ROADMAP, Queue 3).
+    Counts what the JAX version counts: a pixel whose ``gt`` is not
+    ``ignore`` goes to the flat cell ``gt*C + pred`` (negative indices clip
+    to 0, as ``jnp.bincount`` clips them) when that index is below ``C*C``,
+    and is dropped otherwise.  So a prediction of 255 (an unlabelled teacher
+    pixel) with ``gt*C + 255 < C*C`` (gt <= 5 for C = 19) lands in row
+    ``gt + 255 // C``, column ``255 % C``, as in ``dasac_tpu``; the
+    reference's Jaccard would count it as a false negative of ``gt``
+    (ROADMAP, Queue 3).  Dropped and ignored pixels go to one extra bin
+    that is sliced off, so there is no boolean indexing.
 
     Bins are one row per row of pixels, so the atomic adds of a row spread
     over its own bins instead of all meeting on ``C*C`` addresses.
     """
     c = num_classes
     gt = gt.long()
-    pred = pred.long()
-    keep = ((gt != ignore) & (gt >= 0) & (gt < c) & (pred >= 0) & (pred < c))
-    idx = torch.where(keep, gt * c + pred, c * c)
+    flat = (gt * c + pred.long()).clamp_min(0)
+    idx = torch.where((gt != ignore) & (flat < c * c), flat, c * c)
     idx = idx.reshape(-1, idx.shape[-1]) if idx.dim() > 1 else idx.view(1, -1)
     bins = torch.zeros((idx.shape[0], c * c + 1), dtype=torch.int64,
                        device=idx.device)

@@ -91,18 +91,23 @@ def test_confusion_matches_jax(shape):
 
 
 def test_confusion_drops_predictions_outside_the_classes():
-    """A prediction of 255 (an unlabelled teacher pixel) is not counted.
-    JAX counts it at ``gt*C + 255`` when that index is below C*C (another
-    class's cell) and drops it otherwise; the two agree once those pixels
-    are out of the ground truth."""
+    """Predictions of 255 (unlabelled teacher pixels) are counted as JAX
+    counts them: at ``gt*C + 255`` when that index is below C*C (row
+    gt + 13, column 8 for C = 19), dropped otherwise.  The two confusions
+    are equal on the unmasked inputs."""
     pred, gt = _pred_gt(1)
     pred[::2, ::3] = 255
     ours = tmetrics.confusion_matrix(_t(pred), _t(gt), C).numpy()
-    gt_m = np.where(pred == 255, 255, gt)
     ref = np.asarray(jmetrics.confusion_matrix(jnp.asarray(pred),
-                                               jnp.asarray(gt_m), C))
+                                               jnp.asarray(gt), C))
     np.testing.assert_array_equal(ours, ref)
-    assert ours.sum() == ((gt != 255) & (pred != 255)).sum()
+    folded = (gt != 255) & (pred == 255) & (gt * C + 255 < C * C)
+    assert folded.any()
+    assert ours.sum() == ((gt != 255) & (pred != 255)).sum() + folded.sum()
+    # uint8 inputs, as the pseudo-labels come
+    np.testing.assert_array_equal(
+        tmetrics.confusion_matrix(_t(pred.astype(np.uint8)),
+                                  _t(gt.astype(np.uint8)), C).numpy(), ref)
 
 
 def test_summaries_and_stat_manager_match_jax():
@@ -305,8 +310,6 @@ def test_target_eval_step_matches_jax(states, monkeypatch, res, dtype):
         if name == "teacher_labels":
             mask = pred_t != pred_j
             assert mask.mean() < 0.01, (name, mask.mean())
-            # the JAX confusion folds unlabelled pixels into other cells
-            mask |= pred_j == 255
         else:
             bf16 = name == "teacher_refined" and dtype == "bfloat16"
             mask = (_ties(p, 2.0 ** -6, relative=True) if bf16

@@ -1,9 +1,11 @@
 """Rules of the port that no parity test sees.
 
-  * ``dasac_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX and
-    nothing of ``dasac_tpu``;
+  * ``dasac_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX, nothing
+    of ``dasac_tpu``, and no PIL, torchvision or PyYAML (the card's machine
+    has none of them);
   * the entry points default to CUDA and raise, rather than run on the CPU,
-    when no device is given and there is no card;
+    when no device is given and there is no card; the trainer CLI does so
+    before it reads a config or touches data;
   * the CE wrapper runs its plain version only for a CPU tensor;
   * ``chip_smoke.py`` fails, and prints no result, without a card or
     without the rest of the repo.
@@ -24,10 +26,11 @@ from dasac_tpu_torch.core.state import create_train_state
 from dasac_tpu_torch.infer import engine
 from dasac_tpu_torch.nn.factory import build_model
 from dasac_tpu_torch.ops import ce
-from dasac_tpu_torch.train import optim, steps
+from dasac_tpu_torch.train import cli, optim, steps
 
 REPO = Path(__file__).resolve().parents[1]
-BANNED = {"jax", "jaxlib", "flax", "optax", "dasac_tpu"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "dasac_tpu", "PIL",
+          "torchvision", "yaml"}
 
 
 def _port_files():
@@ -47,11 +50,17 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
     files = _port_files()
-    assert len(files) > 15
-    # the Triton yardstick, the nvcc build module and the eval, checkpoint
-    # and inference modules are scanned like the rest
+    assert len(files) > 30
+    # the Triton yardstick, the nvcc build module, the eval, checkpoint and
+    # inference modules and the training program's are scanned like the
+    # rest
     for name in ("ops/ce_triton.py", "ops/cuda_build.py", "train/metrics.py",
-                 "train/checkpoints.py", "infer/engine.py"):
+                 "train/checkpoints.py", "infer/engine.py",
+                 "core/config.py", "core/yaml_subset.py", "core/opts.py",
+                 "data/category.py", "data/lists.py", "data/sampler.py",
+                 "data/png.py", "data/packed.py", "data/host_loader.py",
+                 "data/synth.py", "data/factory.py", "train/loop.py",
+                 "train/cli.py", "utils/logging.py", "utils/visualise.py"):
         assert REPO / "dasac_tpu_torch" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}
@@ -84,6 +93,18 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         engine.make_infer_fn(model, (0.5,) * 3, (0.2,) * 3)
     # naming the CPU is the caller's explicit choice
     assert create_train_state(model, opt, 5, device="cpu").step == 0
+
+
+def test_trainer_cli_raises_without_a_device_before_touching_data(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--cfg", str(tmp_path / "missing.yaml"), "--logdir",
+            str(tmp_path / "logs"), "--snapshot-dir", str(tmp_path / "snap"),
+            "--set", "DATASET.ROOT", str(tmp_path / "no_data")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    # no config read (the file does not exist), no directory made
+    assert not any(tmp_path.iterdir())
 
 
 def test_ce_wrapper_has_no_fallback_off_the_cpu():
