@@ -57,10 +57,12 @@ no result line:
               (``dasac_tpu_torch.train.cli.main``), in this process, on a
               synthetic root written under ``build/smoke_train`` (removed
               after) by the port's PNG encoder at the real frame sizes: 24
-              GTA-sized source frames (1052x1914), 16 Cityscapes-sized
-              target frames and 4 frames for every val split (1024x2048),
-              labels 0..18 with ~10% ignored; with the decode time of one
-              1024x2048 frame under each PNG filter and from a pack.  Then
+              GTA-sized source frames (1052x1914), 8 Cityscapes-sized
+              target frames (cut from 16 to keep the smoke's time down; the
+              target split is stretched to the source's length, so the
+              step counts do not change) and 4 frames for every
+              val split (1024x2048), labels 0..18 with ~10% ignored; with
+              the decode time of one 1024x2048 frame of the root.  Then
               the recipe's stages with ``TPU.CE_IMPL pallas``: ABN
               (``configs/deeplabv2_resnet101.yaml``, 2 epochs x 2 steps
               and one validation round), SAC from the ABN ``last.pth``
@@ -1037,11 +1039,8 @@ TRAIN_SETS = []  # extra --set pairs after the stage's own (none here)
 
 def write_train_root(root, card):
     """The synthetic root, written by the port's own PNG encoder (filter 0);
-    then the decode time of one Cityscapes-sized frame written with each of
-    the five PNG filters, and of the same frame read from a memmap pack."""
-    import shutil
-
-    from dasac_tpu_torch.data import host_loader, lists, packed, png, synth
+    then the decode time of one of its Cityscapes-sized frames."""
+    from dasac_tpu_torch.data import lists, png, synth
 
     t0 = time.perf_counter()
     synth.make_synthetic_root(
@@ -1051,37 +1050,16 @@ def write_train_root(root, card):
     write_s = time.perf_counter() - t0
     nbytes = sum(os.path.getsize(os.path.join(d, f))
                  for d, _, fs in os.walk(root) for f in fs)
-    images, masks = lists.read_split(root, "val_cityscapes")
+    images, _ = lists.read_split(root, "val_cityscapes")
+    t0 = time.perf_counter()
     frame = png.to_rgb(png.read(images[0]))
-    decode_ms = {}
-    scratch = os.path.join(root, "..", "smoke_codec")
-    os.makedirs(scratch, exist_ok=True)
-    try:
-        for f in range(5):
-            path = os.path.join(scratch, "f%d.png" % f)
-            png.write(path, frame, filter_type=f)
-            t0 = time.perf_counter()
-            got = png.to_rgb(png.read(path))
-            decode_ms[f] = (time.perf_counter() - t0) * 1e3
-            need(np.array_equal(got, frame), "PNG filter %d round trip" % f)
-        hdr = packed.write_pack(host_loader.SegDataset(
-            images, masks, TRAIN_VAL[1:], "center_crop"), "val_cityscapes",
-            scratch, verbose=False)
-        ds = packed.PackedDataset(hdr)
-        t0 = time.perf_counter()
-        got = ds.load(1)[0]
-        pack_ms = (time.perf_counter() - t0) * 1e3
-        need(np.array_equal(got, png.to_rgb(png.read(images[1]))),
-             "the pack holds another frame than the PNG")
-    finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+    decode_ms = (time.perf_counter() - t0) * 1e3
     out = dict(phase="train_root", card=card, root_write_s=write_s,
                root_bytes=nbytes, frames=dict(source=list(TRAIN_SRC),
                                               target=list(TRAIN_TGT),
                                               val=list(TRAIN_VAL)),
                ignore_frac=TRAIN_IGNORE, host_cpus=os.cpu_count(),
-               decode_ms_by_filter=decode_ms, pack_load_ms=pack_ms,
-               frame_hw=list(frame.shape[:2]))
+               decode_ms_filter0=decode_ms, frame_hw=list(frame.shape[:2]))
     log("train_root: %s" % json.dumps(out))
     return out
 
@@ -1160,7 +1138,6 @@ def measured_trainer(probe, check_resume=None):
                     events[1].record()
                     probe["events"].append(events)
                 probe["host_ms"].append((time.perf_counter() - t0) * 1e3)
-                probe["step"], probe["batch"] = step, batch
                 return out
 
             self.train_step = timed_step
@@ -1248,37 +1225,6 @@ def _events(logdir):
     return out
 
 
-def fed_step_ms(trainer, probe, device, n=4, on_device=False):
-    """The same step on the stage's last batch, ``n`` times in a row with
-    the trainer's one-step-late readback and no loader running: CUDA-event
-    ms of each (None off the card).  The batch is held in host memory, as
-    the loaders give it, or with ``on_device`` already on the card.
-    Against the stage's steps the first shows what the loaders' threads
-    cost; against each other, what the pageable H2D copy (which also waits
-    for the step before) costs; the second against the bare step (phases 4
-    and 6), what the loader-sized frames cost.  Run after the stage, on its
-    final state."""
-    import torch
-
-    if device.type != "cuda":
-        return None
-    step, batch = probe["step"], probe["batch"]
-    if on_device:
-        batch = tuple(torch.as_tensor(a).to(device) for a in batch)
-    times, pending = [], None
-    for _ in range(n):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        metrics = step(trainer.state, batch, trainer.generator)
-        ev[1].record()
-        if pending is not None:
-            float(next(iter(pending.values())))
-        pending = metrics
-        times.append(ev)
-    torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in times]
-
-
 def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
                     device, card, bare_ms=None, check_resume=None):
     """One ``cli.main`` run, measured from outside the trainer; checks its
@@ -1350,8 +1296,6 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
     # the steady steps are the others
     steady = [t for k, t in enumerate(steps)
               if k not in probe["epoch_starts"]]
-    fed = fed_step_ms(trainer, probe, device)
-    fed_dev = fed_step_ms(trainer, probe, device, on_device=True)
     out = dict(
         phase="train", stage=stage, card=card, argv=argv, wall_s=wall_s,
         setup_s=probe["setup_s"], start_epoch=probe["start_epoch"],
@@ -1361,12 +1305,7 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
         step_ms_median=statistics.median(steps[1:]),
         steady_step_ms_median=statistics.median(steady),
         loader_wait_ms_median=statistics.median(waits[1:]),
-        bare_step_ms_median=bare_ms, fed_step_ms=fed,
-        fed_step_ms_median=statistics.median(fed[1:]) if fed else None,
-        fed_on_device_step_ms=fed_dev,
-        fed_on_device_step_ms_median=(statistics.median(fed_dev[1:])
-                                      if fed_dev else None),
-        val_ms=probe["val_ms"],
+        bare_step_ms_median=bare_ms, val_ms=probe["val_ms"],
         snapshot_save_ms=probe["save_ms"], max_memory_allocated=peak,
         epoch_losses={t: v for t, v in losses.items()
                       if not t.startswith("train_epoch/self_ce_class")},

@@ -191,9 +191,8 @@ __C.TPU.PACKED_DIR = "auto"
 __C.TPU.COMPILE_CACHE = "~/.cache/dasac_tpu/xla"
 
 
-def assert_and_infer_cfg(make_immutable=True):
-    if make_immutable:
-        cfg.immutable(True)
+def assert_and_infer_cfg():
+    cfg.immutable(True)
 
 
 def merge_cfg_from_file(cfg_filename):

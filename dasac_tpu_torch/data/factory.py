@@ -188,15 +188,11 @@ class Loaders:
             threads=cfg.TPU.LOADER_THREADS, prefetch=cfg.TPU.PREFETCH)
         return src_loader, tgt_loader
 
-    def val_loader(self, split, batch_size=None, max_batches=None,
-                   distributed=False):
-        """``distributed=True`` shards the split decode across processes
-        (each rank loads its ``batch_size`` slice of every global batch);
-        the caller must then psum the confusions across the pod."""
+    def val_loader(self, split, batch_size=None, max_batches=None):
+        """Whole batches in one process: the trainer evaluates on one
+        device (multi-process validation is ROADMAP Queue 1 item 10)."""
         ds = self.val[split]
         bs = batch_size or max(1, self.cfg.TRAIN.BATCH_SIZE // 2)
-        reps = self.num_replicas if distributed else 1
-        rank = self.rank if distributed else 0
         return host_loader.padded_plain_loader(
             ds, bs, self.cfg.TPU.LOADER_THREADS, self.cfg.TPU.PREFETCH,
-            max_batches=max_batches, num_replicas=reps, rank=rank)
+            max_batches=max_batches)

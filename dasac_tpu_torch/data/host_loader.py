@@ -208,32 +208,20 @@ class PrefetchLoader:
 
 
 def padded_plain_loader(dataset, batch_size, threads, prefetch,
-                        max_batches=None, num_replicas=1, rank=0):
+                        max_batches=None):
     """Sequential loader over the whole dataset with the tail batch padded by
     all-ignore dummies (index -1), keeping batch shapes static without
-    double-counting images (shared by validation and inference).
-
-    Multi-host: with ``num_replicas``/``rank`` each process decodes only its
-    contiguous ``batch_size`` slice of every global batch (global stride =
-    batch_size * num_replicas), so the pod's assembled batches cover each
-    image exactly once; all ranks see the same batch count.  The loader's
-    ``n_real`` attribute counts this rank's non-dummy samples."""
+    double-counting images (shared by validation and inference)."""
     n = len(dataset)
-    stride = batch_size * num_replicas
-    num_batches = -(-n // stride)
+    num_batches = -(-n // batch_size)
     if max_batches:
         num_batches = min(num_batches, max_batches)
-    idx = np.full(num_batches * stride, -1, np.int64)
+    idx = np.full(num_batches * batch_size, -1, np.int64)
     take = min(n, len(idx))
     idx[:take] = np.arange(take)
-    # this rank's interleaved view: batch bi -> global[bi*stride + rank*bs :]
-    local = idx.reshape(num_batches, num_replicas, batch_size)[:, rank, :]
-    local = local.reshape(-1)
-    loader = PrefetchLoader(dataset, batch_size, num_batches,
-                            make_plain_index_fn(local, batch_size),
-                            threads=threads, prefetch=prefetch)
-    loader.n_real = int((local >= 0).sum())
-    return loader
+    return PrefetchLoader(dataset, batch_size, num_batches,
+                          make_plain_index_fn(idx, batch_size),
+                          threads=threads, prefetch=prefetch)
 
 
 def make_plain_index_fn(sampler_indices, batch_size):

@@ -17,9 +17,9 @@ BUNDLED_DIR = os.path.normpath(
     os.path.join(os.path.dirname(__file__), "..", "..", "data"))
 
 
-def find_split_file(root, split, list_dir=None):
-    """``<list_dir or root>/<split>.txt`` if present, else the bundled copy."""
-    split_fn = os.path.join(list_dir or root, split + ".txt")
+def find_split_file(root, split):
+    """``<root>/<split>.txt`` if present, else the bundled copy."""
+    split_fn = os.path.join(root, split + ".txt")
     if not os.path.isfile(split_fn):
         bundled = os.path.join(BUNDLED_DIR, split + ".txt")
         if os.path.isfile(bundled):
@@ -30,16 +30,13 @@ def find_split_file(root, split, list_dir=None):
     return split_fn
 
 
-def read_split(root, split, must_exist=True, list_dir=None):
+def read_split(root, split):
     """Returns (image_paths, mask_paths) — mask is None when absent.
 
     Image/mask paths always resolve against ``root`` (the reference's
-    DATASET.ROOT contract); the list file itself may live elsewhere
-    (``list_dir``, e.g. an explicit --infer-list path's directory).
-    ``must_exist=False`` skips the per-file existence asserts (used to
-    validate list syntax without the datasets on disk).
+    DATASET.ROOT contract).
     """
-    split_fn = find_split_file(root, split, list_dir=list_dir)
+    split_fn = find_split_file(root, split)
     images, masks = [], []
     with open(split_fn) as f:
         for line in f:
@@ -47,21 +44,19 @@ def read_split(root, split, must_exist=True, list_dir=None):
             if not parts or not parts[0]:
                 continue
             img = os.path.join(root, parts[0].lstrip("/"))
-            if must_exist:
-                assert os.path.isfile(img), "{} not found".format(img)
+            assert os.path.isfile(img), "{} not found".format(img)
             images.append(img)
             if len(parts) == 2:
                 msk = os.path.join(root, parts[1].lstrip("/"))
-                if must_exist:
-                    assert os.path.isfile(msk), "{} not found".format(msk)
+                assert os.path.isfile(msk), "{} not found".format(msk)
                 masks.append(msk)
             else:
                 masks.append(None)
     return images, masks
 
 
-def canonical_size(split, crop_hw=None):
-    """Host-side canonical (H, W) per split family.
+def canonical_size(split):
+    """Host-side canonical (H, W) per split family, None for others.
 
     GTA frames are standardized to 1052x1914 (reference
     dataloader_seg.py:151-153); other datasets keep native size, which the
@@ -73,4 +68,4 @@ def canonical_size(split, crop_hw=None):
         return (760, 1280)
     if "cityscapes" in split:
         return (1024, 2048)
-    return crop_hw
+    return None

@@ -109,7 +109,7 @@ class PackedDataset:
         return list(self._image_basenames)
 
 
-def write_pack(dataset, split, packed_dir, progress_every=200, verbose=True):
+def write_pack(dataset, split, packed_dir, verbose=True):
     """Decode every sample of ``dataset`` (a SegDataset) into a pack.
 
     Streams sample-by-sample so packing 9K full-resolution frames never
@@ -128,7 +128,7 @@ def write_pack(dataset, split, packed_dir, progress_every=200, verbose=True):
             dataset.images[i], img.shape, msk.shape)
         imgs[i] = img
         msks[i] = msk
-        if verbose and (i + 1) % progress_every == 0:
+        if verbose and (i + 1) % 200 == 0:
             print("  packed %d/%d" % (i + 1, n))
     imgs.flush()
     msks.flush()

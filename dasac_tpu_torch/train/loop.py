@@ -162,7 +162,7 @@ class Trainer:
 
     # ------------------------------------------------------------------ train
 
-    def train_epoch(self, epoch, log_every=10):
+    def train_epoch(self, epoch):
         cfg = self.cfg
         stat = StatManager()
         timer = Timer()
@@ -178,7 +178,7 @@ class Trainer:
             if pending is not None:
                 pi, pmetrics = pending
                 self._log_train(stat, pending, epoch)
-                if pi % log_every == 0:
+                if pi % 10 == 0:
                     # the PREVIOUS step's metrics: reading them waits for
                     # that step only, while this one is queued
                     mvals = {k: float(v) for k, v in pmetrics.items()
@@ -330,12 +330,11 @@ class Trainer:
 
     # ------------------------------------------------------------------- fit
 
-    def fit(self, num_epochs=None, snapshot=True):
+    def fit(self):
         cfg = self.cfg
-        num_epochs = num_epochs or cfg.TRAIN.NUM_EPOCHS
         log_val = cfg.LOG.ITER_VAL
         log_target = cfg.LOG.ITER_TARGET
-        for epoch in range(self.start_epoch, num_epochs + 1):
+        for epoch in range(self.start_epoch, cfg.TRAIN.NUM_EPOCHS + 1):
             print("Epoch >>> {:02d} <<<".format(epoch))
             # target-split validation runs for BOTH modes (the reference's
             # baseline uses step_target = step(train=False), train.py:115)
@@ -348,13 +347,11 @@ class Trainer:
                     s = self.validation(epoch, vs)
                     if vs == self.loaders.testset:
                         score += s
-                if snapshot:
-                    saved = self.best.update(self.state, score, epoch)
-                    if saved:
-                        print("New best snapshot: {}".format(saved))
+                saved = self.best.update(self.state, score, epoch)
+                if saved:
+                    print("New best snapshot: {}".format(saved))
             self.train_epoch(epoch)
-            if snapshot:
-                # rolling preemption-safe snapshot after every epoch
-                self.checkpointer.save_latest(self.state, self.best.best,
-                                              epoch + 1)
+            # rolling preemption-safe snapshot after every epoch
+            self.checkpointer.save_latest(self.state, self.best.best,
+                                          epoch + 1)
         return self.state

@@ -17,18 +17,16 @@ from dasac_tpu_torch.data import png
 
 
 class ScalarWriter:
-    def __init__(self, logdir, use_tensorboard=True):
+    def __init__(self, logdir):
         self.logdir = logdir
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = open(os.path.join(logdir, "events.jsonl"), "a")
-        self._tb = None
-        if use_tensorboard:
-            try:
-                from torch.utils.tensorboard import SummaryWriter
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-                self._tb = SummaryWriter(logdir)
-            except ImportError:
-                self._tb = None
+            self._tb = SummaryWriter(logdir)
+        except ImportError:
+            self._tb = None
 
     def add_scalar(self, tag, value, step):
         rec = {"t": time.time(), "tag": tag, "value": float(value),

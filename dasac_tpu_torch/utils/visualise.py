@@ -50,8 +50,9 @@ def heatmap(values01, cmap="inferno"):
     return _to_u8(mapper(v)[..., :3])
 
 
-def grid(rows, pad=2):
-    """rows: list of [B,H,W,3] uint8 -> one [R*(H+pad), B*(W+pad), 3]."""
+def grid(rows):
+    """rows: list of [B,H,W,3] uint8 -> one [R*(H+2), B*(W+2), 3]."""
+    pad = 2
     rows = [np.asarray(r) for r in rows]
     b, h, w, _ = rows[0].shape
     out = np.zeros((len(rows) * (h + pad), b * (w + pad), 3), np.uint8)
@@ -70,12 +71,12 @@ def _argmax_rgb(scores):
     return masks_to_rgb(_t(scores).float().argmax(-1))
 
 
-def entropy_heatmap(probs, cmap="jet"):
+def entropy_heatmap(probs):
     """[B,H,W,C] probabilities -> normalized-entropy jet heatmap
     (reference base_trainer.py:244-250 _error_rgb with the jet colormap)."""
     p = torch.clamp(_t(probs).float(), 1e-8, 1.0)
     ent = -(p * torch.log(p)).sum(-1) / np.log(p.shape[-1])
-    return heatmap(ent, cmap=cmap)
+    return heatmap(ent, cmap="jet")
 
 
 def target_panel(views, refined_probs, pseudo, student_up, mean, std,
