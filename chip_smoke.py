@@ -17,7 +17,8 @@ no result line:
               (f32 ``[8,512,1024,19]``, ~20% ignored labels), with bf16
               logits, and with every label ignored, and at the ABN step's
               source and target shapes (f32 ``[12,640,640,19]`` and
-              ``[8,640,640,19]``, 10% ignored plus crop padding); then
+              ``[8,640,640,19]``, 10% ignored plus crop padding) and the
+              VGG ABN step's source rows (``[16,640,640,19]``); then
               the CUDA kernel, the Triton kernel, the plain version and
               ``F.cross_entropy`` (a yardstick the port never calls) timed
               in turns with CUDA events at the SAC step's shape;
@@ -75,12 +76,36 @@ no result line:
               validation and each snapshot) and checked: finite losses, 2 +
               1 CE launches per ABN step and 2 + 2 per SAC step all on the
               bulk path, the events of every val split and of the target
-              split, the best snapshot and ``last.pth``, the start epoch.
+              split, the best snapshot and ``last.pth``, the start epoch;
+ 11. vgg_agree  the SAC views step of ``deeplabv2_vgg16_bn`` and
+              ``fcn_vgg16_bn`` (full width, FCN8s without dropout) on a
+              40x48 input, on the card and on the CPU, 2 iterations;
+ 12. vgg      for each VGG arch at full width and depth in bf16: the SAC
+              step of its ``_train.yaml`` (512x1024, 8 source frames + 2
+              groups of 4 views, FCN8s's dropout on), 2 + 6 steps, and the
+              ABN step of its base YAML (640x640 crops from 16 source
+              frames of 1052x1914 and 2 target frames of 1024x2048, the
+              YAMLs' TRAIN.BATCH_SIZE and NUM_GROUPS), 2 + 4 steps; launch
+              counts (2 + 2 and 2 + 1 a step, all bulk), peak memory, and
+              2 steps of each under the profiler;
+ 13. infer_cli  the inference program through its CLI
+              (``dasac_tpu_torch.infer.cli.main``) in this process, with
+              the SAC snapshot of phase 7, on a Cityscapes-val layout of 8
+              frames at 1024x2048 written under ``build/smoke_infer``
+              (removed after): one scale at batch 1, then 3 scales + flip
+              fused at stride 8 at batch 2; the exports checked, scored by
+              ``tools.evaluate_miou`` (equal to the CLI's confusion and
+              mIoU) and turned into IS weights by
+              ``tools.compute_is_weights``; ms per frame by part;
+ 14. bench_infer  ``tools.bench_infer`` (on-device argmax, 1024x2048):
+              r101 and both VGG archs at batch 1 and 4, and r101 with 3
+              scales + flip fused at stride 8, one JSON line each.
 Each phase prints one JSON line with the card's name and power limit.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``; the CUDA rows of the kernels
-line carry the trainer's launches (``launches_train``).
+line carry the trainer's launches (``launches_train``) and the VGG steps'
+(``launches_vgg``).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -114,6 +139,9 @@ FLAGSHIP = (8, 512, 1024)
 ABN_SRC = (12, 1052, 1914)
 ABN_TGT = (8, 1024, 2048)
 ABN_CROP = (640, 640)
+# the VGG ABN YAMLs' source batch (TRAIN.BATCH_SIZE 16): the most CE rows
+# of any path, 16x640x640
+VGG_ABN_ROWS = (16, *ABN_CROP)
 INFER_HW = (1024, 2048)  # one Cityscapes val frame
 # published device-memory rate of the card, by product (NVIDIA data sheets)
 MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H100", 3.35e12))
@@ -267,9 +295,10 @@ def kernel_inputs(dtype, ignore_frac, device, shape=FLAGSHIP, pad_rows=0):
 def kernel_cases():
     """(name, dtype, ignore_frac, shape, pad_rows, fwd tol, bwd tol): the
     SAC path's shape in f32 and bf16 and with every label ignored, then the
-    ABN path's source (12x640x640) and target (8x640x640) rows in f32 with
-    the ABN label mix (10% ignored, and 80 rows of crop padding: the crop
-    of a frame shrunk below 640 rows)."""
+    ABN path's source (12x640x640) and target (8x640x640) rows and the VGG
+    ABN source rows (16x640x640) in f32 with the ABN label mix (10%
+    ignored, and 80 rows of crop padding: the crop of a frame shrunk below
+    640 rows)."""
     import torch
 
     return [("f32", torch.float32, 0.2, FLAGSHIP, 0, 1e-4, 1e-6),
@@ -278,7 +307,9 @@ def kernel_cases():
             ("abn_src_f32", torch.float32, 0.1, (ABN_SRC[0], *ABN_CROP), 80,
              1e-4, 1e-6),
             ("abn_tgt_f32", torch.float32, 0.1, (ABN_TGT[0], *ABN_CROP), 80,
-             1e-4, 1e-6)]
+             1e-4, 1e-6),
+            ("vgg_abn_src_f32", torch.float32, 0.1, VGG_ABN_ROWS, 80, 1e-4,
+             1e-6)]
 
 
 def check_kernels(ce, device):
@@ -388,7 +419,13 @@ class _ModelCfg:
     MOMENTUM = 0.9
 
 
-def check_agreement(device):
+def check_agreement(device, arch="deeplabv2_resnet101", label="agree",
+                    card=None, **model_kw):
+    """The SAC views step of ``arch`` (default a shallow full-width r101;
+    ``model_kw`` go to ``build_model``) on a 40x48 input, 2 iterations on
+    the CPU and on ``device`` from the same He-scaled weights and views:
+    losses, running_conf, parameters and teacher within rtol 1e-3 / atol
+    1e-5, pseudo-labels within 1%."""
     import torch
 
     from dasac_tpu_torch.aug import pipelines
@@ -397,6 +434,8 @@ def check_agreement(device):
     from dasac_tpu_torch.nn.layers import Conv2d
     from dasac_tpu_torch.train import optim, steps
 
+    if arch == "deeplabv2_resnet101" and not model_kw:
+        model_kw = dict(layers=(1, 1, 1, 1))
     h, w, g, t = 40, 48, 2, 3
     scfg = steps.StepConfig(crop_hw=(h, w), group_size=t, lr_target=0.1,
                             net_momentum_iter=1, run_conf_lower=0.01)
@@ -410,8 +449,7 @@ def check_agreement(device):
     src_y = torch.from_numpy(rng.randint(0, C, (2, h, w)).astype(np.int32))
 
     gen = torch.Generator().manual_seed(SEED)
-    ref_model = build_model("deeplabv2_resnet101", C, device="cpu",
-                            layers=(1, 1, 1, 1), generator=gen)
+    ref_model = build_model(arch, C, device="cpu", generator=gen, **model_kw)
     with torch.no_grad():   # He-scaled weights: confident, varied logits
         for m in ref_model.modules():
             if isinstance(m, Conv2d):
@@ -419,10 +457,9 @@ def check_agreement(device):
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
     runs = {}
     for dev in ("cpu", device):
-        model = build_model("deeplabv2_resnet101", C, device="cpu",
-                            layers=(1, 1, 1, 1))
+        model = build_model(arch, C, device="cpu", **model_kw)
         model.load_state_dict(ref_model.state_dict())
-        opt = optim.build_optimizer(_ModelCfg, "deeplabv2_resnet101", model)
+        opt = optim.build_optimizer(_ModelCfg, arch, model)
         state = create_train_state(model, opt, C, device=dev)
         step = steps.make_sac_views_step(scfg, debug="light")
         v = pipelines.TargetViews(*(a.to(dev) for a in views))
@@ -448,9 +485,9 @@ def check_agreement(device):
         torch.testing.assert_close(s_dev.teacher_params[k].cpu(),
                                    s_ref.teacher_params[k], rtol=1e-3,
                                    atol=1e-5, msg="teacher " + k)
-    log("agree: card vs CPU views step, 2 iterations: losses, running_conf, "
+    log("%s: %s card vs CPU views step, 2 iterations: losses, running_conf, "
         "params and teacher within rtol 1e-3 / atol 1e-5; pseudo-label "
-        "mismatch %.5f (< 0.01)" % worst)
+        "mismatch %.5f (< 0.01); %s" % (label, arch, worst, card))
 
 
 # ---------------------------------------------------------------------------
@@ -706,14 +743,14 @@ def check_abn_agreement(device, card=None):
 # phase 6: the flagship ABN step
 # ---------------------------------------------------------------------------
 
-def abn_batch(device):
+def abn_batch(device, src=ABN_SRC, tgt=ABN_TGT):
     """uint8 frames from ``RandomState(SEED)``, labels 0..18 with about 10%
-    ignored."""
+    ignored: ``src`` and ``tgt`` are (frames, H, W)."""
     import torch
 
     rng = np.random.RandomState(SEED)
     out = []
-    for b, h, w in (ABN_SRC, ABN_TGT):
+    for b, h, w in (src, tgt):
         lbl = rng.randint(0, C, (b, h, w)).astype(np.uint8)
         lbl[rng.rand(b, h, w) < 0.1] = IGNORE
         out += [rng.randint(0, 256, (b, h, w, 3), dtype=np.uint8), lbl]
@@ -1394,6 +1431,387 @@ def run_train(ce, ce_triton, device, card, bare_ms=None):
 
 
 # ---------------------------------------------------------------------------
+# phases 11 and 12: the VGG-16 family
+# ---------------------------------------------------------------------------
+
+VGG_ARCHS = ("deeplabv2_vgg16_bn", "fcn_vgg16_bn")
+# (SAC config, ABN config) of each arch, as launch/train.sh pairs them
+VGG_CFG = {"deeplabv2_vgg16_bn": ("configs/deeplabv2_vgg16_train.yaml",
+                                  "configs/deeplabv2_vgg16.yaml"),
+           "fcn_vgg16_bn": ("configs/fcn_vgg16_train.yaml",
+                            "configs/fcn_vgg16.yaml")}
+VGG_ABN_STEPS = 6    # the first 2 are warm-up
+
+
+def yaml_config(path):
+    """The port's config from ``path`` over the defaults, with the CE
+    kernels chosen (``TPU.CE_IMPL pallas``), and its step config."""
+    from dasac_tpu_torch.core.config import (cfg, cfg_from_file,
+                                             cfg_from_list, reset_cfg)
+    from dasac_tpu_torch.train import steps
+
+    reset_cfg()
+    cfg_from_file(path)
+    cfg_from_list(["TPU.CE_IMPL", "pallas"])
+    return cfg, steps.step_config_from_cfg(cfg)
+
+
+def check_vgg_agreement(device, card):
+    """Phase 11: the SAC views step of each VGG arch, card against CPU
+    (FCN8s without dropout: the two devices' generators differ)."""
+    for arch in VGG_ARCHS:
+        kw = {"drop_rate": 0.0} if arch == "fcn_vgg16_bn" else {}
+        check_agreement(device, arch, label="vgg_agree", card=card, **kw)
+
+
+def run_vgg(ce, ce_triton, device, card):
+    """Phase 12: for each VGG arch at full width and depth in bf16, the SAC
+    step of its ``_train.yaml`` (512x1024, 8 source frames + 2 groups of 4
+    views, FCN8s with its dropout on) for ``N_STEPS`` steps, and the ABN
+    step of its base YAML (640x640 crops from TRAIN.BATCH_SIZE source
+    frames of 1052x1914 and TRAIN.NUM_GROUPS target frames of 1024x2048)
+    for ``VGG_ABN_STEPS``; launch counts set to 0 before and read after
+    each run (2 + 2 a SAC step, 2 + 1 an ABN step, all bulk), peak memory,
+    then 2 steps of each under the profiler.  Returns {arch: {kind:
+    launches}}."""
+    import torch
+
+    from dasac_tpu_torch.core.state import create_train_state
+    from dasac_tpu_torch.nn.factory import build_model
+    from dasac_tpu_torch.train import optim, steps
+
+    torch.backends.cudnn.benchmark = True
+    launches = {}
+    for arch in VGG_ARCHS:
+        launches[arch] = {}
+        for kind, path in zip(("sac", "abn"), VGG_CFG[arch]):
+            cfg, scfg = yaml_config(path)
+            need(cfg.MODEL.ARCH == arch, "%s is for %s" % (path,
+                                                           cfg.MODEL.ARCH))
+            model = build_model(arch, C, dtype=torch.bfloat16, device=device,
+                                generator=torch.Generator().manual_seed(SEED))
+            state = create_train_state(
+                model, optim.build_optimizer(cfg.MODEL, arch, model), C,
+                device=device)
+            if kind == "sac":
+                step = steps.make_sac_step(scfg, device=device)
+                batch = sac_batch(device)
+                n, per = N_STEPS, {"nll_fwd": 2, "nll_bwd": 2}
+                shape = dict(source=FLAGSHIP[0], target_groups=SAC_GROUPS,
+                             group_size=scfg.group_size,
+                             hw=list(scfg.crop_hw))
+            else:
+                src = (cfg.TRAIN.BATCH_SIZE, *ABN_SRC[1:])
+                tgt = (cfg.TRAIN.NUM_GROUPS, *ABN_TGT[1:])
+                step = steps.make_abn_step(scfg, device=device)
+                batch = abn_batch(device, src, tgt)
+                n, per = VGG_ABN_STEPS, {"nll_fwd": 2, "nll_bwd": 1}
+                shape = dict(source=list(src), target=list(tgt),
+                             crop=list(scfg.crop_hw))
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(ce, ce_triton)
+            times, rows = [], []
+            for i in range(n):
+                t0 = time.perf_counter()
+                m = step(state, batch, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                row = {k: float(v) for k, v in m.items() if v.dim() == 0}
+                for k, v in row.items():
+                    need(math.isfinite(v), "vgg %s %s step %d: %s = %r"
+                         % (arch, kind, i, k, v))
+                rows.append(row)
+            got, paths, _ = read_counts(ce, ce_triton,
+                                        {k: v * n for k, v in per.items()})
+            peak = torch.cuda.max_memory_allocated()
+            nonfinite = [k for k, p in model.named_parameters()
+                         if not torch.isfinite(p).all()]
+            need(not nonfinite, "non-finite params: %s" % nonfinite[:4])
+            launches[arch][kind] = got
+            log("vgg: %s" % json.dumps(dict(
+                phase="vgg", arch=arch, step=kind, config=path, card=card,
+                steps=n, warmup=WARMUP_STEPS, step_ms=times,
+                step_ms_median=statistics.median(times[WARMUP_STEPS:]),
+                max_memory_allocated=peak, losses=rows, ce_launches=got,
+                ce_launches_by_path=paths, batch=shape)))
+            profile_steps(step, state, batch, gen, card,
+                          label="vgg_profile %s %s" % (arch, kind))
+            del state, model, step, batch
+            torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the inference program through its CLI, and the offline tools
+# ---------------------------------------------------------------------------
+
+INFER_FRAMES = 8     # Cityscapes-val frames of the synthetic root
+INFER_CFG = "configs/deeplabv2_resnet101_train.yaml"
+INFER_RUNS = {"single": ["--batch", "1"],
+              "multi_flip_stride8": ["--scales", "0.75", "1.0", "1.25",
+                                     "--flip", "--fuse", "stride8",
+                                     "--batch", "2"]}
+
+
+def write_cityscapes_val(root, card):
+    """A Cityscapes-val layout of ``INFER_FRAMES`` frames at 1024x2048,
+    written by the port's PNG encoder: ``leftImg8bit/val/<city>/``, the
+    masks the split list names (trainIds, as the reference's converted
+    ``gtFine2``) and ``gtFine/val/<city>/*_gtFine_labelIds.png``
+    (Cityscapes labelIds, for the offline scorer); blocky labels with ~10%
+    ignored, frames coloured by class plus noise."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dasac_tpu_torch.data import png
+    from dasac_tpu_torch.data.category import (color_table,
+                                               trainid_to_cs_table)
+
+    h, w = INFER_HW
+    rng = np.random.RandomState(SEED + 4)
+    t2c, colors = trainid_to_cs_table(), color_table()
+    lines, jobs = [], []
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for i in range(INFER_FRAMES):
+            stem = "frankfurt_%06d_000019" % i
+            lbl = np.repeat(np.repeat(rng.randint(0, C, (h // 64, w // 64)),
+                                      64, 0), 64, 1).astype(np.uint8)
+            lbl[rng.rand(h, w) < 0.1] = IGNORE
+            img = np.clip(colors[lbl].astype(np.int16)
+                          + rng.randint(-40, 41, (h, w, 3)), 0,
+                          255).astype(np.uint8)
+            files = {"leftImg8bit": (img, "_leftImg8bit"),
+                     "gtFine2": (lbl, "_gtFine_labelIds"),
+                     "gtFine": (t2c[lbl], "_gtFine_labelIds")}
+            for d, (arr, suffix) in files.items():
+                rel = "%s/val/frankfurt/%s%s.png" % (d, stem, suffix)
+                os.makedirs(os.path.dirname(os.path.join(root, rel)),
+                            exist_ok=True)
+                jobs.append(pool.submit(png.write, os.path.join(root, rel),
+                                        arr))
+            lines.append("leftImg8bit/val/frankfurt/%s_leftImg8bit.png "
+                         "gtFine2/val/frankfurt/%s_gtFine_labelIds.png"
+                         % (stem, stem))
+    for j in jobs:
+        j.result()
+    with open(os.path.join(root, "val_cityscapes.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    log("infer_root: %s" % json.dumps(dict(
+        phase="infer_root", card=card, frames=INFER_FRAMES, hw=list(INFER_HW),
+        write_s=time.perf_counter() - t0)))
+
+
+def measured_inference(probe):
+    """Patches of the inference engine that measure a run from outside:
+    each wait on the loader and the host time of each loop body after it,
+    the device time (CUDA events) and host time (to a synchronize) of each
+    call of the inference program, and each export's time in its worker
+    thread and the wait in ``close``.  Returns the function that undoes
+    them."""
+    import torch
+
+    from dasac_tpu_torch.data import host_loader
+    from dasac_tpu_torch.infer import engine
+
+    orig = (host_loader.padded_plain_loader, engine.make_infer_fn,
+            engine.ResultWriter)
+
+    def loader(*a, **k):
+        inner = orig[0](*a, **k)
+
+        def batches():
+            it = iter(inner)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                probe["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+                t1 = time.perf_counter()
+                yield item
+                probe["body_ms"].append((time.perf_counter() - t1) * 1e3)
+        return batches()
+
+    def make_infer_fn(*a, **k):
+        fn = orig[1](*a, **k)
+
+        def timed(images):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(images)
+            end.record()
+            torch.cuda.synchronize()
+            probe["infer_host_ms"].append((time.perf_counter() - t0) * 1e3)
+            probe["device_ms"].append(start.elapsed_time(end))
+            return out
+        return timed
+
+    class Writer(orig[2]):
+        def _write(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super()._write(*a, **k)
+            probe["write_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def close(self):
+            t0 = time.perf_counter()
+            super().close()
+            probe["close_ms"] = (time.perf_counter() - t0) * 1e3
+
+    host_loader.padded_plain_loader = loader
+    engine.make_infer_fn = make_infer_fn
+    engine.ResultWriter = Writer
+
+    def undo():
+        (host_loader.padded_plain_loader, engine.make_infer_fn,
+         engine.ResultWriter) = orig
+    return undo
+
+
+def run_infer_cli(ce, ce_triton, snapshot, device, card):
+    """Phase 13: ``dasac_tpu_torch.infer.cli.main`` in this process on the
+    synthetic Cityscapes-val root with the SAC snapshot of phase 7, one
+    scale at batch 1 and 3 scales + flip fused at stride 8 at batch 2;
+    each run's exports checked (8 palette and 8 ``cs/`` PNGs), scored
+    offline by ``tools.evaluate_miou`` (its confusion is the CLI's, its
+    mIoU the CLI's to 1e-6), and the trainId exports turned into IS
+    weights by ``tools.compute_is_weights`` and read back by the sampler.
+    Prints each run's ms per frame by part: loader wait, inference
+    program (device ms and host ms to its end), the rest of the loop body
+    (the uint8 D2H copy, the confusion's enqueue, the submits), and the
+    exports (worker-thread ms per frame, and the wait in ``close``)."""
+    import glob
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.data import png, sampler
+    from dasac_tpu_torch.infer import cli
+    from dasac_tpu_torch.tools import compute_is_weights, evaluate_miou
+    from dasac_tpu_torch.train.metrics import mean_iou
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_infer")
+    root = os.path.join(base, "root")
+    try:
+        write_cityscapes_val(root, card)
+        for name, flags in INFER_RUNS.items():
+            out_dir = os.path.join(base, "out_" + name)
+            probe = dict(wait_ms=[], body_ms=[], infer_host_ms=[],
+                         device_ms=[], write_ms=[], close_ms=None)
+            reset_counts(ce, ce_triton)
+            undo = measured_inference(probe)
+            t0 = time.perf_counter()
+            try:
+                conf = cli.main(["--cfg", INFER_CFG, "--dataloader",
+                                 "cityscapes", "--resume", snapshot,
+                                 "--infer-list", "val_cityscapes",
+                                 "--mask-output-dir", out_dir, "--set",
+                                 "DATASET.ROOT", root, *flags])
+            finally:
+                undo()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            read_counts(ce, ce_triton, {"nll_fwd": 0, "nll_bwd": 0})
+            n = INFER_FRAMES
+            preds = sorted(glob.glob(os.path.join(out_dir, "*.png")))
+            cs = sorted(glob.glob(os.path.join(out_dir, "cs", "*.png")))
+            need(len(preds) == n and len(cs) == n,
+                 "%s: %d trainId and %d cs exports" % (name, len(preds),
+                                                      len(cs)))
+            need(all(png.read(p).color_type == 3 for p in preds)
+                 and all(png.read(p).color_type == 0 for p in cs),
+                 "%s: export formats" % name)
+            ev, matched = evaluate_miou.evaluate_dirs(
+                os.path.join(out_dir, "cs"), os.path.join(root, "gtFine",
+                                                          "val"))
+            _, payload = evaluate_miou.format_report(ev)
+            miou = mean_iou(conf)
+            need(matched == n and np.array_equal(ev[:C, :C], conf)
+                 and not ev[:, C].any() and not ev[C].any(),
+                 "%s: evaluate_miou's confusion is not the CLI's" % name)
+            need(abs(payload["mean_iou"] - miou) <= 1e-6,
+                 "%s: evaluate_miou %r vs the CLI's %r"
+                 % (name, payload["mean_iou"], miou))
+            weights_path = os.path.join(base, "weights_%s.data" % name)
+            weights = compute_is_weights.count(out_dir, out=weights_path,
+                                               verbose=False)
+            loaded = sampler.load_sample_weights(weights_path)
+            need(loaded == weights and len(loaded) == n,
+                 "%s: IS weights did not load back" % name)
+            # the first batch (the loader's first wait, cuDNN autotuning at
+            # a new shape) is set-up: the loop's figures a frame leave it
+            # out, the exports' and the wall's keep every frame
+            body_rest = [b - i for b, i in zip(probe["body_ms"],
+                                               probe["infer_host_ms"])]
+            steady = n - n // len(probe["device_ms"])
+            per = {k: sum(probe[v][1:]) / steady for k, v in (
+                ("loader_wait", "wait_ms"), ("device", "device_ms"),
+                ("infer_host", "infer_host_ms"))}
+            per.update(d2h_and_rest=sum(body_rest[1:]) / steady,
+                       first_batch_device=probe["device_ms"][0],
+                       writer_worker=sum(probe["write_ms"]) / n,
+                       writer_close_wait=probe["close_ms"] / n,
+                       wall=wall_ms / n)
+            log("infer_cli: %s" % json.dumps(dict(
+                phase="infer_cli", run=name, card=card, argv_flags=flags,
+                frames=n, miou_cli=miou, miou_evaluate=payload["mean_iou"],
+                ms_per_frame=per, batches=len(probe["device_ms"]),
+                loader_wait_ms=probe["wait_ms"],
+                infer_host_ms=probe["infer_host_ms"],
+                device_ms=probe["device_ms"], body_rest_ms=body_rest,
+                write_ms=probe["write_ms"], close_ms=probe["close_ms"],
+                is_weights_images=len(loaded))))
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def save_infer_snapshot(state):
+    """The SAC state as a reference-format snapshot for phase 13, under
+    ``build/smoke_infer`` (removed by phase 13)."""
+    from dasac_tpu_torch.train import checkpoints
+
+    return checkpoints.Checkpointer(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "smoke_infer",
+        "snap")).save_latest(state, 0.0, 0)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the serving benchmark
+# ---------------------------------------------------------------------------
+
+BENCH_RUNS = ([["--arch", a, "--batch", b] for a in ("deeplabv2_resnet101",
+                                                     *VGG_ARCHS)
+               for b in ("1", "4")]
+              + [["--arch", "deeplabv2_resnet101", "--batch", "1",
+                  "--scales", "0.75", "1.0", "1.25", "--flip", "--fuse",
+                  "stride8"]])
+
+
+def run_bench_infer(device):
+    """``tools.bench_infer`` at 1024x2048 (its default), the on-device
+    argmax (what ``run_inference`` runs): r101 and both VGG archs at batch
+    1 and 4, and r101 with 3 scales + flip fused at stride 8."""
+    import torch
+
+    from dasac_tpu_torch.tools import bench_infer
+
+    out = []
+    for flags in BENCH_RUNS:
+        rec = bench_infer.main([*flags, "--output", "argmax"], device=device)
+        need(rec["value"] > 0 and rec["device"] == torch.cuda.get_device_name(
+            0), "bench_infer %s" % flags)
+        out.append(rec)
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=()):
     import argparse
@@ -1431,6 +1849,14 @@ def main(argv=()):
         run_abn_lr_witness(device, card)
         return 0
 
+    phase_s, lap_t = {}, [t_start]
+
+    def lap(phase):
+        """Seconds since the previous lap, kept for the summary line."""
+        now = time.perf_counter()
+        phase_s[phase] = now - lap_t[0]
+        lap_t[0] = now
+
     ptxas = build_cuda(ce)
     paths_before = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
     checks = check_kernels(ce, device)
@@ -1441,22 +1867,40 @@ def main(argv=()):
     triton_checks = check_kernels(ce_triton, device)
     timing = time_kernels(ce, ce_triton, device, name)
     torch.cuda.empty_cache()
-    check_agreement(device)
+    lap("kernels")
+    check_agreement(device, card=card)
+    lap("agree")
     launches, paths, triton_launches, sac_ms = run_slice(ce, ce_triton,
                                                          device, card)
     torch.cuda.empty_cache()
+    lap("slice")
     check_abn_agreement(device, card)
+    lap("abn_agree")
     abn_state, abn_launches, abn_paths, abn_triton, abn_ms = run_abn(
         ce, ce_triton, device, card)
+    lap("abn")
     sac_state = run_handoff(ce, ce_triton, abn_state, device, card)
     del abn_state
     torch.cuda.empty_cache()
+    lap("handoff")
     run_eval(sac_state, device, card)
+    lap("eval")
     run_infer(sac_state, device, card)
+    snapshot = save_infer_snapshot(sac_state)
     del sac_state
     torch.cuda.empty_cache()
+    lap("infer")
     train = run_train(ce, ce_triton, device, card,
                       bare_ms={"sac": sac_ms, "abn": abn_ms})
+    lap("train")
+    check_vgg_agreement(device, card)
+    lap("vgg_agree")
+    vgg = run_vgg(ce, ce_triton, device, card)
+    lap("vgg")
+    run_infer_cli(ce, ce_triton, snapshot, device, card)
+    lap("infer_cli")
+    run_bench_infer(device)
+    lap("bench_infer")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -1490,12 +1934,18 @@ def main(argv=()):
                         for st, o in train.items()}
             row.update(launches_train=sum(by_stage.values()),
                        launches_train_by_stage=by_stage)
+            # the VGG steps (phase 12), by arch and step
+            row["launches_vgg"] = {
+                arch: {kind: (got[k] if route == "cuda" else 0)
+                       for kind, got in by_kind.items()}
+                for arch, by_kind in vgg.items()}
             if route == "cuda":
                 row.update(triton_ms=t["triton_ms"],
                            launches_by_path=paths[k],
                            ptxas=[r for r in ptxas if k + "_bulk_kernelILi19E"
                                   in r["kernel"]])
             kernels.append(row)
+    log("phase_s: %s" % json.dumps(phase_s))
     log(json.dumps({"kernels": kernels}))
     log("card: %s; total %.1f s" % (card, time.perf_counter() - t_start))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 ``dasac_tpu/core/state.py``).
 
   * model              — the student ``nn.Module`` (params + BN buffers)
-  * optimizer          — its SGD over the 4 LR groups
+  * optimizer          — its SGD over the 4 LR groups (None for inference)
   * teacher_params / teacher_stats — the EMA teacher's tensors, keyed like
     the student's parameters / float buffers
   * running_conf [C]   — moving class prior (a tensor on the device)
@@ -14,7 +14,7 @@ branch from them without reading the device.
 """
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -24,7 +24,7 @@ from dasac_tpu_torch.core.device import resolve_device
 @dataclass
 class TrainState:
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Optional[torch.optim.Optimizer]
     teacher_params: Dict[str, torch.Tensor]
     teacher_stats: Dict[str, torch.Tensor]
     running_conf: torch.Tensor
@@ -42,11 +42,13 @@ class TrainState:
 def create_train_state(model, optimizer, num_classes, device=None):
     """Move ``model`` to ``device`` (default CUDA; raises when there is none)
     and start the state.  The teacher starts as a copy of the student (the
-    first teacher update overwrites it wholesale anyway, sac.py:74-81)."""
+    first teacher update overwrites it wholesale anyway, sac.py:74-81).
+    ``optimizer=None`` makes a state for inference, which no step takes."""
     device = resolve_device(device)
     model.to(device)
-    opt_ids = {id(p) for g in optimizer.param_groups for p in g["params"]}
-    if opt_ids != {id(p) for p in model.parameters()}:
+    if optimizer is not None and (
+            {id(p) for g in optimizer.param_groups for p in g["params"]}
+            != {id(p) for p in model.parameters()}):
         raise ValueError("the optimizer must hold exactly the model's "
                          "parameters")
     state = TrainState(model=model, optimizer=optimizer,

@@ -17,9 +17,10 @@ BUNDLED_DIR = os.path.normpath(
     os.path.join(os.path.dirname(__file__), "..", "..", "data"))
 
 
-def find_split_file(root, split):
-    """``<root>/<split>.txt`` if present, else the bundled copy."""
-    split_fn = os.path.join(root, split + ".txt")
+def find_split_file(root, split, list_dir=None):
+    """``<list_dir or root>/<split>.txt`` if present, else the bundled
+    copy."""
+    split_fn = os.path.join(list_dir or root, split + ".txt")
     if not os.path.isfile(split_fn):
         bundled = os.path.join(BUNDLED_DIR, split + ".txt")
         if os.path.isfile(bundled):
@@ -30,13 +31,14 @@ def find_split_file(root, split):
     return split_fn
 
 
-def read_split(root, split):
+def read_split(root, split, list_dir=None):
     """Returns (image_paths, mask_paths) — mask is None when absent.
 
     Image/mask paths always resolve against ``root`` (the reference's
-    DATASET.ROOT contract).
+    DATASET.ROOT contract); the list file itself may live elsewhere
+    (``list_dir``, e.g. an explicit --infer-list path's directory).
     """
-    split_fn = find_split_file(root, split)
+    split_fn = find_split_file(root, split, list_dir)
     images, masks = [], []
     with open(split_fn) as f:
         for line in f:

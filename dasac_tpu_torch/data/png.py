@@ -1,10 +1,11 @@
 """PNG codec in numpy + zlib: the port's image I/O without PIL.
 
-Non-interlaced 8-bit PNGs only.
+Non-interlaced 8-bit PNGs, and 16-bit gray for reading.
 
-* :func:`read` decodes colour types 0 (gray), 2 (RGB), 3 (palette: the
-  pixels are the palette *indices*, the palette is returned beside them) and
-  6 (RGBA), with all five row filters.  None, Sub and Up rows are unfiltered
+* :func:`read` decodes colour types 0 (gray, 8- or 16-bit; 16-bit samples
+  come back as uint16), 2 (RGB), 3 (palette: the pixels are the palette
+  *indices*, the palette is returned beside them) and 6 (RGBA), with all
+  five row filters.  None, Sub and Up rows are unfiltered
   with whole-row numpy operations; Average and Paeth rows depend on the
   pixel to their left after unfiltering and go byte by byte in Python,
   which is slow (real datasets are read from packs, ``data/packed.py``).
@@ -12,13 +13,16 @@ Non-interlaced 8-bit PNGs only.
   ``dasac_tpu``'s loader takes from PIL: ``convert("RGB")`` for images
   (gray replicated, palette looked up, alpha dropped), and for masks the
   raw palette indices of a colour-type-3 file or else ``convert("L")``
-  (ITU-R 601-2 luma in PIL's fixed-point arithmetic).
+  (ITU-R 601-2 luma in PIL's fixed-point arithmetic).  Both take 8-bit
+  images only.
 * :func:`write` encodes gray ``[H, W]`` or RGB ``[H, W, 3]`` uint8 arrays,
-  every row with one chosen filter (0, None, by default).
+  or ``[H, W]`` palette indices with their ``[n, 3]`` palette (colour type
+  3, a ``PLTE`` chunk), every row with one chosen filter (0, None, by
+  default).
 * :func:`png_size` reads ``(H, W)`` from the IHDR chunk alone.
 
-Anything else (16-bit or sub-byte samples, interlacing, gray+alpha, a file
-that is not a PNG) raises :class:`PngError` naming the file.
+Anything else (16-bit colour, sub-byte samples, interlacing, gray+alpha, a
+file that is not a PNG) raises :class:`PngError` naming the file.
 """
 
 import struct
@@ -36,9 +40,11 @@ class PngError(ValueError):
 
 
 class PngImage(NamedTuple):
-    pixels: np.ndarray            # uint8 [H, W] (gray, indices) or [H, W, C]
+    pixels: np.ndarray            # uint8 [H, W] (gray, indices) or [H, W, C];
+    #                               uint16 [H, W] for 16-bit gray
     color_type: int
     palette: Optional[np.ndarray]  # uint8 [n, 3] for colour type 3
+    bit_depth: int = 8
 
 
 def _header(ihdr, path):
@@ -46,15 +52,16 @@ def _header(ihdr, path):
         raise PngError("%s: bad IHDR chunk" % path)
     w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB",
                                                               ihdr)
-    if depth != 8 or ctype not in _CHANNELS:
+    if ctype not in _CHANNELS or depth not in ((8, 16) if ctype == 0
+                                               else (8,)):
         raise PngError("%s: bit depth %d, colour type %d: only 8-bit gray, "
-                       "RGB, palette and RGBA are supported"
+                       "RGB, palette and RGBA and 16-bit gray are supported"
                        % (path, depth, ctype))
     if interlace:
         raise PngError("%s: interlaced PNGs are not supported" % path)
     if comp or filt:
         raise PngError("%s: unknown compression/filter method" % path)
-    return h, w, ctype
+    return h, w, ctype, depth
 
 
 def png_size(path):
@@ -95,16 +102,21 @@ def read(path):
             idat.append(body)
         elif ctype == b"IEND":
             break
-    h, w, color_type = header
+    h, w, color_type, depth = header
     if color_type == 3 and palette is None:
         raise PngError("%s: palette image without a PLTE chunk" % path)
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise PngError("%s: %s" % (path, e)) from None
-    bpp = _CHANNELS[color_type]
-    pixels = _unfilter(raw, h, w, bpp, path)
-    pixels = pixels.reshape(h, w, bpp) if bpp > 1 else pixels.reshape(h, w)
+    channels = _CHANNELS[color_type]
+    # filters work on bytes: a 16-bit gray pixel is 2 of them
+    pixels = _unfilter(raw, h, w, channels * depth // 8, path)
+    if depth == 16:   # big-endian samples
+        return PngImage(pixels.view(">u2").astype(np.uint16).reshape(h, w),
+                        color_type, palette, depth)
+    pixels = (pixels.reshape(h, w, channels) if channels > 1
+              else pixels.reshape(h, w))
     return PngImage(pixels, color_type, palette)
 
 
@@ -161,9 +173,16 @@ def _paeth_row(cur, prev, bpp):
     return out
 
 
+def _eight_bit(img):
+    if img.bit_depth != 8:
+        raise PngError("a %d-bit image where an 8-bit one is needed"
+                       % img.bit_depth)
+    return img.pixels
+
+
 def to_rgb(img):
     """uint8 [H, W, 3], as PIL's ``convert("RGB")`` gives it."""
-    px = img.pixels
+    px = _eight_bit(img)
     if img.color_type == 2:
         return px
     if img.color_type == 6:
@@ -179,7 +198,7 @@ def to_rgb(img):
 def to_mask(img):
     """uint8 [H, W]: palette indices for colour type 3 (trainIds stored as
     indices), otherwise PIL's ``convert("L")``."""
-    px = img.pixels
+    px = _eight_bit(img)
     if img.color_type in (0, 3):
         return px
     rgb = px[..., :3].astype(np.uint32)
@@ -193,16 +212,31 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def encode(array, filter_type=0):
+def encode(array, filter_type=0, palette=None):
     """PNG bytes of a uint8 gray ``[H, W]`` or RGB ``[H, W, 3]`` array, every
     row filtered with ``filter_type`` (0 None, 1 Sub, 2 Up, 3 Average,
     4 Paeth), compressed at zlib's level 1 (PIL saves at 6; on the
-    synthetic frames level 1 writes ~1.7x faster and compresses as well)."""
+    synthetic frames level 1 writes ~1.7x faster and compresses as well).
+    With a uint8 ``palette`` ``[n, 3]`` (n <= 256) the ``[H, W]`` array
+    holds palette indices: colour type 3, which PIL opens in mode "P"."""
     arr = np.asarray(array)
     if arr.dtype != np.uint8 or not (
             arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] == 3)):
         raise PngError("encode takes uint8 [H, W] or [H, W, 3], got %s %s"
                        % (arr.dtype, arr.shape))
+    plte = b""
+    if palette is not None:
+        pal = np.asarray(palette)
+        if (pal.dtype != np.uint8 or pal.ndim != 2 or pal.shape[1] != 3
+                or not 1 <= len(pal) <= 256 or arr.ndim != 2):
+            raise PngError("a palette image takes uint8 [H, W] indices and "
+                           "a uint8 [n, 3] palette (n <= 256), got %s %s "
+                           "and %s %s" % (arr.dtype, arr.shape, pal.dtype,
+                                          pal.shape))
+        if arr.size and arr.max() >= len(pal):
+            raise PngError("palette index %d beyond a palette of %d entries"
+                           % (arr.max(), len(pal)))
+        plte = _chunk(b"PLTE", pal.tobytes())
     if filter_type not in range(5):
         raise PngError("unknown filter type %r" % (filter_type,))
     h, w = arr.shape[:2]
@@ -223,8 +257,9 @@ def encode(array, filter_type=0):
     raw = np.empty((h, w * bpp + 1), np.uint8)
     raw[:, 0] = filter_type
     raw[:, 1:] = rows
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
-    return b"".join((SIGNATURE, _chunk(b"IHDR", ihdr),
+    ctype = 3 if plte else (0 if bpp == 1 else 2)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    return b"".join((SIGNATURE, _chunk(b"IHDR", ihdr), plte,
                      _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)),
                      _chunk(b"IEND", b"")))
 
@@ -234,8 +269,8 @@ def _chunk(kind, body):
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def write(path, array, filter_type=0):
+def write(path, array, filter_type=0, palette=None):
     """Write ``array`` to ``path`` as a PNG (see :func:`encode`)."""
-    data = encode(array, filter_type)
+    data = encode(array, filter_type, palette)
     with open(path, "wb") as f:
         f.write(data)

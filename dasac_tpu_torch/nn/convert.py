@@ -7,11 +7,13 @@ modules use.  Conv ``kernel`` HWIO becomes ``weight`` OIHW; BN ``scale`` /
 ``bias`` / ``mean`` / ``var`` become ``weight`` / ``bias`` /
 ``running_mean`` / ``running_var`` (plus ``num_batches_tracked = 0``).  The
 converter walks whatever blocks the tree holds, so shallow trunks convert
-too.  The key map is this package's own copy of the one in
-``dasac_tpu/nn/convert.py``.
+too.  The key maps are this package's own copies of the ones in
+``dasac_tpu/nn/convert.py`` (``_resnet_map``, ``_vgg_deeplab_map``,
+``_fcn_map``).
 
 :func:`load_torchvision_backbone` loads a torchvision ImageNet backbone
-(``MODEL.INIT_MODEL``) into the port's ResNet-101 trunk.
+(``MODEL.INIT_MODEL``: ``resnet101`` or ``vgg16_bn``) into the port's
+trunk.
 """
 
 import re
@@ -29,10 +31,42 @@ _LEAVES = {
 _DOWNSAMPLE = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
 
 
+# DeepLabv2/VGG-16: the flax scopes outside ``features``
+# (models/deeplabv2.py:253-267: fc6/fc7 appended to the renumbered
+# features at 42 and 44, ASPP as ``classifier``)
+_VGG_DEEPLAB_HEAD = {"fc6": "features.42", "fc7": "features.44"}
+# FCN8s/VGG-16 (models/fcn.py:26-95): ``vgg_head`` Sequential 0 conv 7x7,
+# 1 bn, 4 conv 1x1, 5 bn, 8 conv 1x1; the skip scores keep their names
+_FCN_HEAD = {"head_fc6": "vgg_head.0", "head_bn6": "vgg_head.1",
+             "head_fc7": "vgg_head.4", "head_bn7": "vgg_head.5",
+             "head_score": "vgg_head.8", "score_pool4": "score_pool4",
+             "score_pool3": "score_pool3"}
+
+
+def _vgg_index(path_part):
+    return int(re.fullmatch(r"features_(\d+)", path_part).group(1))
+
+
+def _deeplab_vgg_shift(i):
+    """torchvision feature index -> the reference DeepLab's (pool 33 gone:
+    the indices above it shift down by one)."""
+    return i - 1 if i > 33 else i
+
+
 def _module_key(arch, path):
     """flax module path (tuple of scope names) -> torch module prefix."""
     if arch == "tiny":
         return ".".join(path)
+    if arch == "deeplabv2_vgg16_bn":
+        if path[0] == "features":
+            return "features.%d" % _deeplab_vgg_shift(_vgg_index(path[1]))
+        if path[0] == "aspp":
+            return "classifier.conv2d_list." + path[1][len("conv"):]
+        return _VGG_DEEPLAB_HEAD[path[0]]
+    if arch == "fcn_vgg16_bn":
+        if path[0] in ("block1", "block2", "block3"):
+            return "%s.%d" % (path[0], _vgg_index(path[1]))
+        return _FCN_HEAD[path[0]]
     if arch != "deeplabv2_resnet101":
         raise ValueError(arch)
     if path[0] == "aspp":
@@ -102,19 +136,46 @@ _TV_RESNET_KEY = re.compile(
     r"^(?:conv1\.weight|bn1\.{p}"
     r"|layer[1-4]\.\d+\.(?:conv[123]\.weight|bn[123]\.{p}"
     r"|downsample\.0\.weight|downsample\.1\.{p}))$".format(p=_TV_PARTS))
+# torchvision vgg16_bn feature keys; the ImageNet classifier (classifier.*)
+# has no counterpart
+_TV_VGG_KEY = re.compile(r"^features\.(\d+)\.({p})$".format(p=_TV_PARTS))
+
+
+def _fcn_block(i):
+    return "block1" if i < 24 else ("block2" if i < 34 else "block3")
+
+
+def _torchvision_name(arch, key):
+    """The port's parameter name of torchvision key ``key``, or None."""
+    if arch == "deeplabv2_resnet101":
+        return "model." + key if _TV_RESNET_KEY.match(key) else None
+    m = _TV_VGG_KEY.match(key)
+    if m is None:
+        return None
+    i, part = int(m.group(1)), m.group(2)
+    if arch == "deeplabv2_vgg16_bn":
+        return "features.%d.%s" % (_deeplab_vgg_shift(i), part)
+    return "%s.%d.%s" % (_fcn_block(i), i, part)
+
+
+_TORCHVISION = {"deeplabv2_resnet101": "resnet101",
+                "deeplabv2_vgg16_bn": "vgg16_bn", "fcn_vgg16_bn": "vgg16_bn"}
 
 
 def load_torchvision_backbone(model, state_dict, arch):
-    """Copy a torchvision ImageNet ``resnet101`` ``state_dict``
-    (``conv1.weight``, ``layer1.0.bn1.running_mean``, ...) into ``model``'s
-    trunk in place, with ``strict=False`` semantics: the counterpart of
-    ``dasac_tpu``'s ``apply_state_dict(variables, sd, arch, "torchvision")``.
+    """Copy a torchvision ImageNet ``state_dict`` into ``model``'s trunk in
+    place, with ``strict=False`` semantics: the counterpart of
+    ``dasac_tpu``'s ``apply_state_dict(variables, sd, arch,
+    "torchvision")``.  ``resnet101`` keys (``conv1.weight``,
+    ``layer1.0.bn1.running_mean``, ...) go to the ResNet, ``vgg16_bn`` keys
+    (``features.<i>.*``) to either VGG arch under its own names.
 
     ``num_batches_tracked`` entries are passed over; keys with no
-    counterpart in ``model`` (``fc.*``, blocks a shallower trunk lacks) are
-    skipped and listed.  A shape mismatch raises.  Returns ``(n_loaded,
-    skipped)``."""
-    if arch.lower() != "deeplabv2_resnet101":
+    counterpart in ``model`` (``fc.*``, ``classifier.*``, blocks a
+    shallower trunk lacks) are skipped and listed.  A shape mismatch
+    raises.  Returns ``(n_loaded, skipped)``."""
+    arch = arch.lower()
+    if arch not in _TORCHVISION:
         raise ValueError("no torchvision key map for arch %r" % arch)
     own = model.state_dict()
     n_loaded, skipped = 0, []
@@ -122,8 +183,8 @@ def load_torchvision_backbone(model, state_dict, arch):
         for key, val in state_dict.items():
             if key.endswith("num_batches_tracked"):
                 continue
-            name = "model." + key
-            if not _TV_RESNET_KEY.match(key) or name not in own:
+            name = _torchvision_name(arch, key)
+            if name is None or name not in own:
                 skipped.append(key)
                 continue
             val = (val.detach().float().cpu() if isinstance(val, torch.Tensor)

@@ -11,9 +11,12 @@ from dasac_tpu_torch.core.device import resolve_device
 from dasac_tpu_torch.nn.layers import Conv2d
 from dasac_tpu_torch.nn.resnet import DeepLabV2ResNet101
 from dasac_tpu_torch.nn.tiny import TinySeg
+from dasac_tpu_torch.nn.vgg import DeepLabV2VGG16, VGG16FCN8s
 
 ARCHS = {
     "deeplabv2_resnet101": DeepLabV2ResNet101,
+    "deeplabv2_vgg16_bn": DeepLabV2VGG16,
+    "fcn_vgg16_bn": VGG16FCN8s,
     "tiny": TinySeg,  # smoke/test arch, not a reference model
 }
 
@@ -23,7 +26,8 @@ def build_model(arch, num_classes, dtype=torch.float32, remat="none",
     """Build ``arch`` with weights drawn from ``generator`` (a CPU
     ``torch.Generator``; default seed 0) and move it to ``device``
     (default CUDA; raises when there is none).  ``kwargs`` go to the model
-    (``layers`` for the ResNet, ``width`` for tiny)."""
+    (``layers`` for the ResNet, ``drop_rate`` for FCN8s, ``width`` for
+    tiny)."""
     key = arch.lower()
     if key not in ARCHS:
         raise ValueError("Unknown arch: {} (have {})".format(
@@ -40,11 +44,17 @@ def build_model(arch, num_classes, dtype=torch.float32, remat="none",
 
 
 def new_param_scopes(arch):
-    """Module prefixes whose params are 'from scratch' (10x/20x LR): the
-    ASPP classifier (reference deeplabv2.py:195)."""
+    """Module prefixes whose params are 'from scratch' (10x/20x LR), the
+    reference's from_scratch registries: the ResNet's ASPP classifier
+    (deeplabv2.py:195); VGG DeepLab's fc6, fc7 and classifier
+    (deeplabv2.py:278-280); FCN's head and skip scores (fcn.py:78-95)."""
     key = arch.lower()
     if key == "deeplabv2_resnet101":
         return ("model.layer5",)
+    if key == "deeplabv2_vgg16_bn":
+        return ("features.42", "features.44", "classifier")
+    if key == "fcn_vgg16_bn":
+        return ("vgg_head", "score_pool4", "score_pool3")
     if key == "tiny":
         return ("aspp",)
     raise ValueError(arch)

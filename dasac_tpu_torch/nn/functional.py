@@ -5,7 +5,7 @@
     interpolation-matrix products (the JAX ``"matmul"`` method), so the
     output stays NHWC-contiguous and the weights are the JAX ones;
   * ceil-mode max pooling, padded with -inf to the extent the JAX version
-    computes;
+    computes, and VGG's plain floor-mode 2x2 max pooling;
   * half-pixel linear resize, antialiased when it shrinks (the counterpart
     of ``jax.image.resize(..., "linear")``).
 """
@@ -76,6 +76,12 @@ def max_pool_ceil(x, window=3, stride=2, padding=1):
     pad_w_hi = (ow - 1) * stride + window - w - padding
     xp = F.pad(x, (padding, pad_w_hi, padding, pad_h_hi), value=float("-inf"))
     return F.max_pool2d(xp, window, stride)
+
+
+def max_pool(x, window=2, stride=2):
+    """Plain VALID max pool (VGG-style, floor mode, no padding) on an
+    NCHW-shaped tensor (any memory format)."""
+    return F.max_pool2d(x, window, stride)
 
 
 def resize_linear(x, hw):

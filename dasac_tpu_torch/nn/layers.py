@@ -112,3 +112,19 @@ class SyncBatchNorm(nn.Module):
         shift = self.bias - mean * inv
         return (x.to(self.dtype) * inv.to(self.dtype)[:, None, None]
                 + shift.to(self.dtype)[:, None, None])
+
+
+def sample_channel_dropout_draws(generator, x, rate):
+    """The keep mask of channel dropout for the NCHW-shaped ``x``: one
+    bool per (sample, channel), kept with probability ``1 - rate``, drawn
+    from ``generator`` (on ``x``'s device; ``None`` draws from torch's
+    default generator)."""
+    return torch.rand(x.shape[:2], generator=generator,
+                      device=x.device) >= rate
+
+
+def apply_channel_dropout(x, keep, rate):
+    """Channel dropout with a given ``keep`` mask ``[N, C]``: each kept
+    channel scaled by ``1 / (1 - rate)``, the others zeroed, the same over
+    H and W (flax ``Dropout(rate, broadcast_dims=(1, 2))`` on NHWC)."""
+    return x * (keep.to(x.dtype) / (1.0 - rate))[:, :, None, None]

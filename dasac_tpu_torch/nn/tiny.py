@@ -8,7 +8,9 @@ import torch
 from torch import nn
 
 from dasac_tpu_torch.nn.functional import resize_bilinear_align_corners
-from dasac_tpu_torch.nn.layers import Conv2d, SyncBatchNorm
+from dasac_tpu_torch.nn.layers import (Conv2d, SyncBatchNorm,
+                                       apply_channel_dropout,
+                                       sample_channel_dropout_draws)
 
 
 class TinySeg(nn.Module):
@@ -36,9 +38,8 @@ class TinySeg(nn.Module):
         if train:
             # Dropout(0.1) with one mask value per (image, channel), as the
             # flax broadcast_dims=(1, 2) gives
-            keep = torch.rand(y.shape[:2], generator=generator,
-                              device=y.device) >= 0.1
-            y = y * (keep.to(y.dtype) / 0.9)[:, :, None, None]
+            y = apply_channel_dropout(
+                y, sample_channel_dropout_draws(generator, y, 0.1), 0.1)
         logits = self.aspp(y).float().permute(0, 2, 3, 1)
         if not upsample:
             return logits, None

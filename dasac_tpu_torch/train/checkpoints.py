@@ -112,8 +112,9 @@ class Checkpointer:
         copies the student (reference sac.py:74-81).  Only the SGD momentum
         buffers are taken from ``opt``: the learning rates and weight decay
         stay the optimizer's own (an ABN snapshot's would otherwise replace
-        the SAC stage's).  A file that is a bare ``state_dict`` loads as
-        the student."""
+        the SAC stage's); a state without an optimizer (inference) reads
+        no ``opt``.  A file that is a bare ``state_dict`` loads as the
+        student."""
         data = torch.load(path, map_location="cpu", weights_only=True)
         model_sd = data.get("model", data)
         student, teacher, extras = {}, {}, {}
@@ -138,7 +139,7 @@ class Checkpointer:
         state.slow_init = int(bool(teacher)
                               and float(extras.get("slow_init", 0)) > 0)
         opt = data.get("opt") if "model" in data else None
-        if opt:
+        if opt and state.optimizer is not None:
             _load_momentum(state.optimizer, opt)
         return state, int(data.get("epoch", 0)), float(
             data.get("score", -1e16))

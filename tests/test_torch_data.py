@@ -145,9 +145,19 @@ def test_png_encoder_filters_read_by_pil(tmp_path, filter_type):
 
 
 def test_png_rejects_what_it_does_not_read(tmp_path):
+    # 16-bit gray is read (as uint16, for the offline scorer), but is no
+    # image or mask for the loaders
+    i16 = str(tmp_path / "i16.png")
+    Image.fromarray(np.arange(12, dtype=np.uint16).reshape(3, 4) * 1000
+                    ).save(i16)
+    img = png.read(i16)
+    with Image.open(i16) as ref:
+        np.testing.assert_array_equal(img.pixels, np.asarray(ref))
+    assert img.pixels.dtype == np.uint16 and img.bit_depth == 16
+    for convert in (png.to_rgb, png.to_mask):
+        with pytest.raises(png.PngError, match="16-bit"):
+            convert(img)
     cases = {
-        "i16.png": lambda p: Image.fromarray(
-            np.arange(12, dtype=np.uint16).reshape(3, 4) * 1000).save(p),
         "la.png": lambda p: Image.new("LA", (4, 3)).save(p),
         "bits1.png": lambda p: Image.new("1", (4, 3)).save(p),
         "x.jpg": lambda p: Image.new("RGB", (4, 3)).save(p, "JPEG"),

@@ -11,7 +11,10 @@ The ABN frames step on the card is held against its CPU run (the
 tolerances of ``chip_smoke.check_abn_agreement``), one ABN step is counted
 at 2 ``nll_fwd`` + 1 ``nll_bwd`` launches on the bulk path, and the
 inference program's labels are the argmax of its probabilities, which
-agree with the CPU's within 1e-5.
+agree with the CPU's within 1e-5.  The kernels are held against their
+plain versions at the VGG ABN step's 16x640x640 rows, one FCN8s SAC step
+is counted at 2 + 2 launches on the bulk path, and ``run_inference``'s
+exported labels are the argmax of its exported probabilities.
 
 Without a card every test here skips.  Tolerances, absolute: NLL 1e-4 (a
 few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
@@ -319,3 +322,70 @@ def test_infer_labels_are_the_argmax_of_probs(cuda, kw):
     model_cpu.load_state_dict(model.state_dict())
     ref = engine.make_infer_fn(model_cpu, mean, std, device="cpu", **kw)(img)
     torch.testing.assert_close(probs.cpu(), ref, rtol=0, atol=1e-5)
+
+
+def test_kernels_match_plain_at_the_vgg_abn_rows(cuda):
+    """16x640x640 rows (6,553,600), 10% ignored plus 80 rows of crop
+    padding per image: the VGG ABN step's source loss."""
+    x, lbl, gr = _case(cuda, (16, 640, 640), torch.float32, ignore_frac=0.1)
+    lbl[:, -80:] = ce.IGNORE
+    _check_rows(x.view(-1, 19), lbl.view(-1), gr.view(-1), "bulk")
+
+
+def test_fcn_sac_step_launches_two_forward_two_backward_on_the_bulk_path(
+        cuda):
+    scfg = steps.StepConfig(num_classes=19, crop_hw=(64, 96), group_size=2,
+                            run_conf_lower=0.01, ce_impl="kernel",
+                            refine_dtype="bfloat16", refine_res="stride8")
+    model = build_model("fcn_vgg16_bn", 19, dtype=torch.bfloat16,
+                        device=cuda)
+    state = create_train_state(model, optim.build_optimizer(
+        _MC, "fcn_vgg16_bn", model), 19, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = (torch.randint(0, 256, (2, 80, 120, 3), generator=g, device=cuda,
+                           dtype=torch.uint8),
+             torch.randint(0, 19, (2, 80, 120), generator=g, device=cuda,
+                           dtype=torch.uint8),
+             torch.randint(0, 256, (1, 64, 96, 3), generator=g, device=cuda,
+                           dtype=torch.uint8),
+             torch.randint(0, 19, (1, 64, 96), generator=g, device=cuda,
+                           dtype=torch.uint8))
+    step = steps.make_sac_step(scfg, device=cuda)
+    step(state, batch, g)       # builds the library outside the count
+    before, paths = dict(ce.LAUNCHES), _paths()
+    m = step(state, batch, g)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for v in m.values())
+    for k in ("nll_fwd", "nll_bwd"):
+        assert ce.LAUNCHES[k] == before[k] + 2
+        assert _paths()[k] == {"bulk": paths[k]["bulk"] + 2,
+                               "strided": paths[k]["strided"]}
+
+
+def test_run_inference_labels_are_the_argmax_of_its_raw_probs(cuda,
+                                                               tmp_path):
+    import os
+
+    import numpy as np
+
+    from dasac_tpu_torch.data import png
+    from dasac_tpu_torch.data.synth import make_synthetic_root
+
+    root = make_synthetic_root(str(tmp_path / "root"), hw=(64, 96), n_val=2)
+    model = build_model("tiny", 19, device=cuda)
+    ds = engine.InferDataset(root, "val_cityscapes")
+    out = str(tmp_path / "out")
+    conf = engine.run_inference(model, ds, out, mean=(0.485, 0.456, 0.406),
+                                std=(0.229, 0.224, 0.225), save_raw=True,
+                                verbose=False, device=cuda)
+    assert conf.shape == (19, 19) and conf.sum() > 0
+    for i in range(len(ds)):
+        name = ds.name(i)
+        labels = png.read(os.path.join(out, name + ".png")).pixels
+        raw = np.load(os.path.join(out, "raw", name + ".npz"))["raw"]
+        # the labels come from the f32 probabilities, the file holds them
+        # rounded to f16: they differ only where f16 ties the top two
+        differ = raw.argmax(-1) != labels
+        top2 = np.sort(raw[differ].astype(np.float32), axis=-1)[:, -2:]
+        assert (top2[:, 0] == top2[:, 1]).all()
+        assert differ.mean() < 0.01

@@ -26,6 +26,8 @@ from dasac_tpu_torch.core.state import create_train_state
 from dasac_tpu_torch.infer import engine
 from dasac_tpu_torch.nn.factory import build_model
 from dasac_tpu_torch.ops import ce
+from dasac_tpu_torch.infer import cli as infer_cli
+from dasac_tpu_torch.tools import bench_infer
 from dasac_tpu_torch.train import cli, optim, steps
 
 REPO = Path(__file__).resolve().parents[1]
@@ -60,7 +62,9 @@ def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
                  "data/category.py", "data/lists.py", "data/sampler.py",
                  "data/png.py", "data/packed.py", "data/host_loader.py",
                  "data/synth.py", "data/factory.py", "train/loop.py",
-                 "train/cli.py", "utils/logging.py", "utils/visualise.py"):
+                 "train/cli.py", "utils/logging.py", "utils/visualise.py",
+                 "nn/vgg.py", "infer/cli.py", "tools/evaluate_miou.py",
+                 "tools/compute_is_weights.py", "tools/bench_infer.py"):
         assert REPO / "dasac_tpu_torch" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}
@@ -105,6 +109,28 @@ def test_trainer_cli_raises_without_a_device_before_touching_data(
         cli.main(argv)
     # no config read (the file does not exist), no directory made
     assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("main", [infer_cli.main, bench_infer.main],
+                         ids=["infer_cli", "bench_infer"])
+def test_inference_entry_points_raise_without_a_device(monkeypatch, tmp_path,
+                                                       main):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--cfg", str(tmp_path / "missing.yaml"), "--resume",
+            str(tmp_path / "missing.pth"), "--mask-output-dir",
+            str(tmp_path / "out")] if main is infer_cli.main else []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.run_inference(build_model("tiny", 5, device="cpu"), None,
+                             str(tmp_path / "out"), mean=(0.5,) * 3,
+                             std=(0.2,) * 3)
+    assert not any(tmp_path.iterdir())
+
+
+def test_bench_infer_spatial_raises_naming_item_10():
+    with pytest.raises(NotImplementedError, match="item 10"):
+        bench_infer.main(["--mode", "spatial"], device="cpu")
 
 
 def test_ce_wrapper_has_no_fallback_off_the_cpu():
