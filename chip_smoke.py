@@ -101,6 +101,8 @@ no result line:
               r101 and both VGG archs at batch 1 and 4, and r101 with 3
               scales + flip fused at stride 8, one JSON line each.
 Each phase prints one JSON line with the card's name and power limit.
+Phases 10, 13 and 14 call each entry point with cuDNN autotuning off, as a
+new process starts, and check that the entry point turned it on.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``; the CUDA rows of the kernels
@@ -118,7 +120,6 @@ import math
 import os
 import re
 import statistics
-import subprocess
 import sys
 import time
 
@@ -158,12 +159,14 @@ def need(cond, msg):
         raise AssertionError(msg)
 
 
-def nvidia_smi():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
+def fresh_cudnn():
+    """cuDNN autotuning off, as a new process starts it, so that an entry
+    point driven in this process runs with the setting it makes itself
+    (``core.device.autotune_convolutions``); the bare-step phases turn it
+    on for themselves."""
+    import torch
+
+    torch.backends.cudnn.benchmark = False
 
 
 def mem_rate(name):
@@ -1279,6 +1282,7 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
     reset_counts(ce, ce_triton)
     original = loop.Trainer
     loop.Trainer = measured_trainer(probe, check_resume)
+    fresh_cudnn()
     t0 = time.perf_counter()
     try:
         trainer = cli.main(argv, device=None if device.type == "cuda"
@@ -1286,6 +1290,8 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
     finally:
         loop.Trainer = original
     wall_s = time.perf_counter() - t0
+    need(torch.backends.cudnn.benchmark == (device.type == "cuda"),
+         "%s: the train CLI left cuDNN autotuning off" % stage)
     if device.type == "cuda":
         torch.cuda.synchronize()
     baseline = trainer.cfg.MODEL.BASELINE
@@ -1706,6 +1712,7 @@ def run_infer_cli(ce, ce_triton, snapshot, device, card):
                          device_ms=[], write_ms=[], close_ms=None)
             reset_counts(ce, ce_triton)
             undo = measured_inference(probe)
+            fresh_cudnn()
             t0 = time.perf_counter()
             try:
                 conf = cli.main(["--cfg", INFER_CFG, "--dataloader",
@@ -1716,6 +1723,8 @@ def run_infer_cli(ce, ce_triton, snapshot, device, card):
             finally:
                 undo()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            need(torch.backends.cudnn.benchmark,
+                 "%s: the infer CLI left cuDNN autotuning off" % name)
             read_counts(ce, ce_triton, {"nll_fwd": 0, "nll_bwd": 0})
             n = INFER_FRAMES
             preds = sorted(glob.glob(os.path.join(out_dir, "*.png")))
@@ -1803,9 +1812,11 @@ def run_bench_infer(device):
 
     out = []
     for flags in BENCH_RUNS:
+        fresh_cudnn()
         rec = bench_infer.main([*flags, "--output", "argmax"], device=device)
-        need(rec["value"] > 0 and rec["device"] == torch.cuda.get_device_name(
-            0), "bench_infer %s" % flags)
+        need(rec["value"] > 0 and rec["cudnn_benchmark"]
+             and rec["device"] == torch.cuda.get_device_name(0),
+             "bench_infer %s" % flags)
         out.append(rec)
         torch.cuda.empty_cache()
     return out
@@ -1831,6 +1842,7 @@ def main(argv=()):
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dasac_tpu_torch.core.device import card_name
     from dasac_tpu_torch.ops import ce, ce_triton
 
     t_start = time.perf_counter()
@@ -1839,7 +1851,7 @@ def main(argv=()):
     torch.set_float32_matmul_precision("highest")
     device = torch.device("cuda")
 
-    card = nvidia_smi()
+    card = card_name()
     name = torch.cuda.get_device_name(0)
     log("card: %s" % card)
     log("torch: %s, cuda %s, %s x %d" % (torch.__version__, torch.version.cuda,

@@ -24,7 +24,7 @@ import torch
 
 from dasac_tpu_torch.core.config import (cfg, cfg_from_file, cfg_from_list,
                                          reset_cfg)
-from dasac_tpu_torch.core.device import resolve_device
+from dasac_tpu_torch.core.device import autotune_convolutions, resolve_device
 from dasac_tpu_torch.core.opts import add_global_arguments
 from dasac_tpu_torch.core.state import create_train_state
 from dasac_tpu_torch.data.category import get_class_names, get_num_classes
@@ -81,6 +81,7 @@ def main(argv=None, device=None):
     cfg_from_file(args.cfg_file)
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs)
+    autotune_convolutions(device)
 
     num_classes = get_num_classes()
     model = build_model(cfg.MODEL.ARCH, num_classes,

@@ -32,6 +32,8 @@ from dasac_tpu_torch.nn.functional import (resize_bilinear_align_corners,
                                            resize_linear)
 from dasac_tpu_torch.train.metrics import confusion_matrix
 
+PROGRESS_EVERY = 50   # frames between run_inference's progress lines
+
 
 class InferDataset(host_loader.SegDataset):
     """Full-resolution loader for an infer list (reference DLInfer /
@@ -134,13 +136,11 @@ class ResultWriter:
     infer_val.py:70-109,160).  ``close()`` waits for every write and
     re-raises the first error a worker hit."""
 
-    def __init__(self, out_dir, save_cs=True, save_raw=False, vis=False,
-                 workers=4):
+    def __init__(self, out_dir, save_raw=False, vis=False, workers=4):
         self.out_dir = out_dir
-        self.save_cs = save_cs
         self.save_raw = save_raw
         self.vis = vis
-        for sub, on in (("", True), ("cs", save_cs), ("raw", save_raw),
+        for sub, on in (("", True), ("cs", True), ("raw", save_raw),
                         ("vis", vis)):
             if on:
                 os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
@@ -158,9 +158,8 @@ class ResultWriter:
     def _write(self, pred, image_u8, name, probs=None):
         png.write(os.path.join(self.out_dir, name + ".png"), pred,
                   palette=self._palette)
-        if self.save_cs:
-            png.write(os.path.join(self.out_dir, "cs", name + ".png"),
-                      self._t2c[pred])
+        png.write(os.path.join(self.out_dir, "cs", name + ".png"),
+                  self._t2c[pred])
         if self.save_raw:
             if probs is None:
                 raise ValueError("save_raw needs the probabilities of %s"
@@ -183,9 +182,9 @@ class ResultWriter:
 
 
 def run_inference(model, dataset, out_dir, *, mean, std, num_classes=19,
-                  scales=(1.0,), flip=False, save_cs=True, save_raw=False,
-                  vis=False, workers=4, verbose=True, progress_every=50,
-                  batch_size=None, spatial=0, fuse="full", device=None):
+                  scales=(1.0,), flip=False, save_raw=False, vis=False,
+                  workers=4, verbose=True, batch_size=None, spatial=0,
+                  fuse="full", device=None):
     """Forward every image of ``dataset`` with ``model``'s weights on
     ``device`` (default CUDA; raises when there is none), export it, and
     sum the confusion where ground truth is present.  Returns the int64
@@ -207,8 +206,8 @@ def run_inference(model, dataset, out_dir, *, mean, std, num_classes=19,
     infer_fn = make_infer_fn(model, mean, std, scales, flip, fuse,
                              output="probs" if save_raw else "argmax",
                              device=device)
-    writer = ResultWriter(out_dir, save_cs=save_cs, save_raw=save_raw,
-                          vis=vis, workers=workers)
+    writer = ResultWriter(out_dir, save_raw=save_raw, vis=vis,
+                          workers=workers)
     have_gt = any(m is not None for m in dataset.masks)
     conf = None
     n = len(dataset)
@@ -228,7 +227,7 @@ def run_inference(model, dataset, out_dir, *, mean, std, num_classes=19,
                 writer.submit(preds_np[k], imgs[k], dataset.name(bi * b + k),
                               probs=None if probs_np is None
                               else probs_np[k])
-            if verbose and (bi * b) % progress_every < b:
+            if verbose and (bi * b) % PROGRESS_EVERY < b:
                 print("[{:4d}/{:4d}] {}".format(
                     min(bi * b + 1, n), n, dataset.name(min(bi * b, n - 1))))
     finally:

@@ -9,8 +9,9 @@ Modes:
 
 Synthetic uint8 frames from ``RandomState(0)`` at a fixed shape (default
 Cityscapes val 1024x2048) already on the card, random weights from seed 0,
-so the number is the device program's alone (no decode, no H2D).  Two
-warm-up calls (cuDNN autotuning), then ``--iters`` calls, the whole run
+so the number is the device program's alone (no decode, no H2D).  cuDNN
+autotunes the convolutions (``core.device.autotune_convolutions``, as the
+infer and train CLIs do; the record says so).  Two warm-up calls, then ``--iters`` calls, the whole run
 fenced with ``torch.cuda.synchronize()``.  Prints ONE JSON line: img/s, ms
 per frame, peak allocated GB, and the card's name and power limit from
 ``nvidia-smi``.
@@ -24,29 +25,20 @@ counterpart here; a FLOP count belongs to the port's bench, ROADMAP Queue
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from dasac_tpu_torch.core.device import resolve_device
+from dasac_tpu_torch.core.device import (autotune_convolutions, card_name,
+                                         resolve_device)
 from dasac_tpu_torch.infer.engine import make_infer_fn
 from dasac_tpu_torch.nn.factory import build_model
 
 # the config defaults (DATASET.MEAN / STD)
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def card_name():
-    """``name, power.limit`` of the first card, as nvidia-smi prints it."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout
-    return out.strip().splitlines()[0].strip()
 
 
 def parse_args(argv):
@@ -85,6 +77,7 @@ def main(argv=None, device=None):
             "not ported yet (ROADMAP Queue 1 item 10)")
     if device.type != "cuda":
         raise ValueError("bench_infer times the card: give it a CUDA device")
+    autotune_convolutions(device)
     b = 1 if args.mode == "single" else (args.batch or 1)
     h, w = args.hw
     model = build_model(args.arch, args.num_classes,
@@ -123,6 +116,7 @@ def main(argv=None, device=None):
         "dtype": args.dtype,
         "output": args.output,
         "iters": args.iters,
+        "cudnn_benchmark": torch.backends.cudnn.benchmark,
         "peak_allocated_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         "device": torch.cuda.get_device_name(device),
         "card": card_name(),

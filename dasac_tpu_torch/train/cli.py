@@ -21,7 +21,7 @@ import torch
 
 from dasac_tpu_torch.core.config import (cfg, cfg_from_file, cfg_from_list,
                                          reset_cfg)
-from dasac_tpu_torch.core.device import resolve_device
+from dasac_tpu_torch.core.device import autotune_convolutions, resolve_device
 from dasac_tpu_torch.core.opts import get_arguments
 from dasac_tpu_torch.train import loop
 
@@ -38,6 +38,7 @@ def main(argv=None, device=None):
         cfg_from_list(args.set_cfgs)
     if args.workers:
         cfg.TPU.LOADER_THREADS = args.workers
+    autotune_convolutions(device)
 
     if args.seed is not None:
         random.seed(args.seed)

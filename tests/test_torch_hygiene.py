@@ -5,7 +5,8 @@
     has none of them);
   * the entry points default to CUDA and raise, rather than run on the CPU,
     when no device is given and there is no card; the trainer CLI does so
-    before it reads a config or touches data;
+    before it reads a config or touches data; on the card they turn cuDNN
+    autotuning on, and nowhere else;
   * the CE wrapper runs its plain version only for a CPU tensor;
   * ``chip_smoke.py`` fails, and prints no result, without a card or
     without the rest of the repo.
@@ -22,6 +23,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from dasac_tpu_torch.core.device import autotune_convolutions
 from dasac_tpu_torch.core.state import create_train_state
 from dasac_tpu_torch.infer import engine
 from dasac_tpu_torch.nn.factory import build_model
@@ -126,6 +128,14 @@ def test_inference_entry_points_raise_without_a_device(monkeypatch, tmp_path,
                              str(tmp_path / "out"), mean=(0.5,) * 3,
                              std=(0.2,) * 3)
     assert not any(tmp_path.iterdir())
+
+
+def test_cudnn_autotuning_is_set_for_the_card_only(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    autotune_convolutions(torch.device("cpu"))
+    assert torch.backends.cudnn.benchmark is False
+    autotune_convolutions(torch.device("cuda"))
+    assert torch.backends.cudnn.benchmark is True
 
 
 def test_bench_infer_spatial_raises_naming_item_10():
