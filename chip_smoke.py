@@ -99,15 +99,33 @@ no result line:
               ``tools.compute_is_weights``; ms per frame by part;
  14. bench_infer  ``tools.bench_infer`` (on-device argmax, 1024x2048):
               r101 and both VGG archs at batch 1 and 4, and r101 with 3
-              scales + flip fused at stride 8, one JSON line each.
+              scales + flip fused at stride 8, one JSON line each;
+ 15. dataset  the dataset program from raw files, under
+              ``build/smoke_dataset`` (removed after):
+              ``make_domain_gap_root``'s scenes rewritten as a GTA5
+              layout (24 train frames of 1052x1914 and 2 val frames, RGB,
+              palette labels of raw GTA ids) and a Cityscapes layout (8
+              train and 2 val frames of 1024x2048, gray labelIds), every frame and label with Paeth
+              or Average rows in turn; ``convert_train_ids`` (gta, cs),
+              ``make_split_lists`` (five splits), ``check_dataset`` (must
+              report the root ready), ``pack_dataset`` (source and target
+              train splits at their canonical sizes, two packed frames held
+              against the Python decode, which is timed); the native
+              decoder's ms a frame (one thread, and one batch call); then
+              the train CLI from the packs with ``TPU.NATIVE_LOADER True``
+              and ``DATASET.VAL_CROP True``: ABN (2 epochs of 2 steps, one
+              validation round center-cropped through the C++ decoder),
+              SAC from its ``last.pth`` (1 epoch of 3 steps), checked as
+              in phase 10; every decode of the loader on the native route.
 Each phase prints one JSON line with the card's name and power limit.
-Phases 10, 13 and 14 call each entry point with cuDNN autotuning off, as a
-new process starts, and check that the entry point turned it on.
+Phases 10, 13, 14 and 15 call each entry point with cuDNN autotuning off,
+as a new process starts, and check that the entry point turned it on.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``; the CUDA rows of the kernels
-line carry the trainer's launches (``launches_train``) and the VGG steps'
-(``launches_vgg``).
+line carry the trainer's launches (``launches_train``), the VGG steps'
+(``launches_vgg``) and the trainer's from the dataset tools' packs
+(``launches_dataset``).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -1266,7 +1284,8 @@ def _events(logdir):
 
 
 def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
-                    device, card, bare_ms=None, check_resume=None):
+                    device, card, bare_ms=None, check_resume=None,
+                    phase="train"):
     """One ``cli.main`` run, measured from outside the trainer; checks its
     losses, CE launches, events, snapshots and start epoch."""
     import torch
@@ -1340,13 +1359,13 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
     steady = [t for k, t in enumerate(steps)
               if k not in probe["epoch_starts"]]
     out = dict(
-        phase="train", stage=stage, card=card, argv=argv, wall_s=wall_s,
+        phase=phase, stage=stage, card=card, argv=argv, wall_s=wall_s,
         setup_s=probe["setup_s"], start_epoch=probe["start_epoch"],
         steps=n_steps, step_ms=steps, loader_wait_ms=waits,
         host_ms_in_step=probe["host_ms"], epoch_first_steps=sorted(set(
             probe["epoch_starts"])),
         step_ms_median=statistics.median(steps[1:]),
-        steady_step_ms_median=statistics.median(steady),
+        steady_step_ms_median=statistics.median(steady) if steady else None,
         loader_wait_ms_median=statistics.median(waits[1:]),
         bare_step_ms_median=bare_ms, val_ms=probe["val_ms"],
         snapshot_save_ms=probe["save_ms"], max_memory_allocated=peak,
@@ -1356,7 +1375,7 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
               if "logits_up_all/mIoU" in tags},
         ce_launches=launches, ce_launches_by_path=paths,
         triton_launches=triton_launches)
-    log("train %s: %s" % (stage, json.dumps(out)))
+    log("%s %s: %s" % (phase, stage, json.dumps(out)))
     return trainer, out
 
 
@@ -1823,6 +1842,332 @@ def run_bench_infer(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the dataset program, from raw files to the trainer
+# ---------------------------------------------------------------------------
+
+# frames of each pool of the raw corpus (source train, target train, and
+# each of the GTA and Cityscapes val pools); the source pool holds two ABN
+# batches (TRAIN.BATCH_SIZE 12 of the ABN YAML), so that each epoch has a
+# step after its first, and the target pool one ABN target batch
+# (NUM_GROUPS 8); the val pools were cut from 4 frames to 2 for time
+DATASET_SRC = (24, 1052, 1914)
+DATASET_TGT = (8, 1024, 2048)
+DATASET_VAL = 2
+DATASET_SETS = []   # extra --set pairs after the stage's own (none here)
+CITY = "zurich"
+
+
+def write_raw_corpus(root):
+    """``make_domain_gap_root``'s scenes (written first under
+    ``<root>/staging``, removed after) rewritten in the raw layouts of the
+    datasets: GTA5 (``gta5/images/{train,val}``, RGB, and
+    ``gta5/labels/{train,val}``, palette PNGs of raw GTA ids) and
+    Cityscapes (``leftImg8bit/{train,val}/<city>`` and
+    ``gtFine/{train,val}/<city>/*_gtFine_labelIds.png``, gray labelIds).
+    The RGB frames and their labels are written with Paeth rows (filter 4)
+    and Average rows (filter 3), one frame each in turn, as the real
+    datasets' are.  Returns {frame path: filter}."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dasac_tpu_torch.data import lists, png, synth
+    from dasac_tpu_torch.data.category import (color_table,
+                                               trainid_to_cs_table)
+
+    staging = os.path.join(root, "staging")
+    t0 = time.perf_counter()
+    synth.make_domain_gap_root(
+        staging, n_train_src=DATASET_SRC[0], n_train_tgt=DATASET_TGT[0],
+        n_val=DATASET_VAL, src_hw=DATASET_SRC[1:], tgt_hw=DATASET_TGT[1:],
+        seed=SEED)
+    gen_s = time.perf_counter() - t0
+    t2c = trainid_to_cs_table()
+    # a GTA-style palette: each raw id's Cityscapes colour
+    palette = np.zeros((34, 3), np.uint8)
+    palette[t2c[:C]] = color_table()[:C]
+    pools = {"train_game_9K": ("gta5", "train"),
+             "val_game_1K": ("gta5", "val"),
+             "train_cityscapes": ("cityscapes", "train"),
+             "val_cityscapes": ("cityscapes", "val")}
+    filters, jobs = {}, []
+
+    def rewrite(src_img, src_lbl, dst_img, dst_lbl, kind, filt):
+        img = png.to_rgb(png.read(src_img))
+        raw = t2c[png.to_mask(png.read(src_lbl))]
+        for p in (dst_img, dst_lbl):
+            os.makedirs(os.path.dirname(p), exist_ok=True)
+        png.write(dst_img, img, filt)
+        if kind == "gta5":
+            png.write(dst_lbl, raw, filt, palette=palette)
+        else:
+            png.write(dst_lbl, raw, filt)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for split, (kind, sub) in pools.items():
+            images, masks = lists.read_split(staging, split)
+            for i, (si, sl) in enumerate(zip(images, masks)):
+                filt = 4 if i % 2 == 0 else 3
+                if kind == "gta5":
+                    di = "gta5/images/%s/%05d.png" % (sub, i)
+                    dl = "gta5/labels/%s/%05d.png" % (sub, i)
+                else:
+                    stem = "%s_%06d_000019" % (CITY, i)
+                    di = "leftImg8bit/%s/%s/%s_leftImg8bit.png" % (
+                        sub, CITY, stem)
+                    dl = "gtFine/%s/%s/%s_gtFine_labelIds.png" % (
+                        sub, CITY, stem)
+                filters[os.path.join(root, di)] = filt
+                jobs.append(pool.submit(
+                    rewrite, si, sl, os.path.join(root, di),
+                    os.path.join(root, dl), kind, filt))
+    for j in jobs:
+        j.result()
+    rewrite_s = time.perf_counter() - t0
+    shutil.rmtree(staging)
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(root) for f in fs)
+    return filters, dict(generate_s=gen_s, rewrite_s=rewrite_s,
+                         raw_bytes=nbytes)
+
+
+def prepare_root(root):
+    """The dataset tools in this process, as a user runs them on the raw
+    corpus: ``convert_train_ids`` (gta, cs), ``make_split_lists`` (the five
+    splits of the GTA task; val2_cityscapes a subset of the
+    Cityscapes train split, as the reference's is), ``check_dataset``
+    (must report the root ready).  Returns each tool's seconds and
+    results."""
+    from dasac_tpu_torch.tools import (check_dataset, convert_train_ids,
+                                       make_split_lists)
+
+    out = {}
+    t0 = time.perf_counter()
+    for dataset, src, dst in (("gta", "gta5/labels", "gta5/labels_cs"),
+                              ("cs", "gtFine", "labels_cs")):
+        convert_train_ids.main(["--dataset", dataset, "--ann-data",
+                                os.path.join(root, src), "--ann-out",
+                                os.path.join(root, dst)])
+    out["convert_s"] = time.perf_counter() - t0
+    out["converted"] = sum(len(fs) for d in ("gta5/labels_cs", "labels_cs")
+                           for _, _, fs in os.walk(os.path.join(root, d)))
+    t0 = time.perf_counter()
+    splits = {
+        "train_game_9K": ["gta", "gta5/images/train", "gta5/labels_cs/train"],
+        "val_game_1K": ["gta", "gta5/images/val", "gta5/labels_cs/val"],
+        "train_cityscapes": ["cityscapes", "leftImg8bit/train",
+                             "labels_cs/train"],
+        "val_cityscapes": ["cityscapes", "leftImg8bit/val", "labels_cs/val"],
+        "val2_cityscapes": ["cityscapes", "leftImg8bit/train",
+                            "labels_cs/train", "--limit",
+                            str(DATASET_VAL)]}
+    for split, (dataset, images, labels, *rest) in splits.items():
+        make_split_lists.main(
+            ["--dataset", dataset, "--root", root, "--image-dir", images,
+             "--label-dir", labels, "--out",
+             os.path.join(root, split + ".txt"), *rest])
+    out["lists_s"] = time.perf_counter() - t0
+    out["list_lines"] = {}
+    for split in splits:
+        with open(os.path.join(root, split + ".txt")) as f:
+            out["list_lines"][split] = len(f.read().splitlines())
+    need(out["list_lines"] == {
+        "train_game_9K": DATASET_SRC[0], "val_game_1K": DATASET_VAL,
+        "train_cityscapes": DATASET_TGT[0], "val_cityscapes": DATASET_VAL,
+        "val2_cityscapes": DATASET_VAL}, "split lists %s" % out["list_lines"])
+    need(out["converted"] == sum(out["list_lines"].values())
+         - DATASET_VAL, "%d labels converted" % out["converted"])
+    t0 = time.perf_counter()
+    report = os.path.join(root, "check.json")
+    rc = check_dataset.main(["--root", root, "--task", "gta", "--json",
+                             report])
+    out["check_s"] = time.perf_counter() - t0
+    with open(report) as f:
+        rep = json.load(f)
+    out["check"] = dict(rc=rc, failures=rep["failures"], mask_kinds={
+        s: e.get("mask_kinds") for s, e in rep["splits"].items()})
+    need(rc == 0 and not rep["failures"], "check_dataset: %s" % rep)
+    return out
+
+
+def decode_times(root, filters, crop=(512, 1024), reps=3):
+    """The native decoder's ms a frame on Cityscapes-sized frames: one
+    thread (median of ``reps`` calls), for a Paeth and an Average frame,
+    resized to the SAC crop (as the SAC target groups are decoded) and at
+    the frame's own size (the exact decode of the center-crop route); and
+    one batch call over the target split on ``TPU.LOADER_THREADS``
+    threads, resized to the crop."""
+    from dasac_tpu_torch.core.config import cfg
+    from dasac_tpu_torch.data import lists, native
+
+    images, masks = lists.read_split(root, "train_cityscapes")
+    threads = cfg.TPU.LOADER_THREADS
+    one = {}
+    for f in (4, 3):
+        i = next(i for i, p in enumerate(images) if filters[p] == f)
+        for hw, key in ((crop, "resize"), (DATASET_TGT[1:], "own_size")):
+            ms = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                need(native.decode_pair(images[i], masks[i], hw) is not None,
+                     "the native decoder refused %s" % images[i])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            one["filter%d_%s" % (f, key)] = statistics.median(ms)
+    t0 = time.perf_counter()
+    _, _, status = native.decode_batch(images, masks, crop, threads=threads)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    need(not status.any(), "decode_batch status %s" % status.tolist())
+    return dict(native_ms_one_thread=one, native_batch_ms=batch_ms,
+                native_batch_frames=len(images),
+                native_batch_ms_per_frame=batch_ms / len(images),
+                threads=threads, host_cpus=os.cpu_count(), crop=list(crop))
+
+
+def pack_root(root, filters):
+    """``pack_dataset`` for the source and target train splits at their
+    canonical sizes; then two packed target frames (a Paeth and an Average
+    one) held against the Python path's decode of their files, which is
+    timed."""
+    from dasac_tpu_torch.data import lists, packed, png
+    from dasac_tpu_torch.tools import pack_dataset
+
+    splits = ("train_game_9K", "train_cityscapes")
+    t0 = time.perf_counter()
+    pack_dataset.main(["--root", root] + [a for s in splits
+                                           for a in ("--split", s)])
+    pack_s = time.perf_counter() - t0
+    pdir = packed.default_dir(root)
+    nbytes = sum(os.path.getsize(os.path.join(pdir, f))
+                 for f in os.listdir(pdir))
+    frames = DATASET_SRC[0] + DATASET_TGT[0]
+    images, masks = lists.read_split(root, "train_cityscapes")
+    ds = packed.PackedDataset(packed.find_pack(pdir, "train_cityscapes",
+                                               DATASET_TGT[1:], "resize"))
+    checks = []
+    for f in (4, 3):
+        i = next(i for i, p in enumerate(images) if filters[p] == f)
+        img, mask = ds.load(i)
+        t0 = time.perf_counter()
+        ref_img = png.to_rgb(png.read(images[i]))
+        python_ms = (time.perf_counter() - t0) * 1e3
+        ref_mask = png.to_mask(png.read(masks[i]))
+        d = np.abs(img.astype(np.int16) - ref_img)
+        checks.append(dict(filter=f, python_decode_ms=python_ms,
+                           masks_equal=bool(
+            (mask == ref_mask).all()), max_abs_diff=int(d.max()),
+            mean_abs_diff=float(d.mean())))
+        need(checks[-1]["masks_equal"] and d.mean() <= 1.5,
+             "packed frame %d against the Python decode: %s"
+             % (i, checks[-1]))
+    return dict(pack_s=pack_s, frames=frames, frames_per_s=frames / pack_s,
+                pack_bytes=nbytes, check=checks)
+
+
+def build_native():
+    """The C++ PNG decoder (``native/dasac_io.cpp``) built by g++ from this
+    checkout into ``build/native/`` and loaded; returns the seconds taken
+    (the train, infer and dataset phases decode through it)."""
+    from dasac_tpu_torch.data import native, native_build
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    logs = sorted(native_build.BUILD_DIR.glob("*.log"))
+    log("native decoder: built in %.1f s: %s" % (
+        build_s, logs[-1].read_text().splitlines()[0] if logs else "?"))
+    return build_s
+
+
+def run_dataset(ce, ce_triton, device, card, native_build_s=None):
+    """Phase 15: a raw corpus at the real frame sizes; the dataset tools
+    (convert, lists, check, pack); the decode times of each route; the
+    trainer CLI from the packs with the native loader and center-cropped
+    validation: ABN (2 epochs of 2 steps, one validation round: the
+    trainer validates from its second epoch), then SAC from its
+    ``last.pth`` (1 epoch of 3 steps).  Every decode of the loader must
+    take the native route.  Returns the CE launches of each stage."""
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.data import native, packed
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_dataset")
+    root = os.path.join(base, "root")
+    shutil.rmtree(base, ignore_errors=True)
+    out = dict(phase="dataset", card=card, native_build_s=native_build_s,
+               frames=dict(
+        source=list(DATASET_SRC), target=list(DATASET_TGT),
+        val_per_pool=DATASET_VAL))
+    decodes = {}
+
+    def routes(stage, want_native):
+        got = dict(native.PATH_DECODES)
+        decodes[stage] = got
+        need(got == {"native": want_native, "python": 0},
+             "%s: decodes by route %s, want %d native" % (stage, got,
+                                                          want_native))
+        for k in native.PATH_DECODES:
+            native.PATH_DECODES[k] = 0
+
+    try:
+        native.set_enabled(True)
+        for k in native.PATH_DECODES:
+            native.PATH_DECODES[k] = 0
+        filters, out["corpus"] = write_raw_corpus(root)
+        out["tools"] = prepare_root(root)
+        routes("tools", 0)
+        out["pack"] = pack_root(root, filters)
+        routes("pack", DATASET_SRC[0] + DATASET_TGT[0])
+        out["decode"] = decode_times(root, filters)
+        for k in native.PATH_DECODES:
+            native.PATH_DECODES[k] = 0
+        common = ["--snapshot-dir", os.path.join(base, "snap"), "--logdir",
+                  os.path.join(base, "logs"), "--exp", "dataset"]
+        sets = ["DATASET.ROOT", root, "TPU.CE_IMPL", "pallas",
+                "TPU.NATIVE_LOADER", "True", "TPU.PACKED_DIR", "auto",
+                "DATASET.VAL_CROP", "True"]
+        stages = {}
+        abn, stages["abn"] = run_train_stage(
+            ce, ce_triton, "dataset_abn",
+            ["--cfg", TRAIN_CFG["abn"], *common, "--run", "abn", "--set",
+             *sets, "MODEL.BASELINE", "True", "TRAIN.NUM_EPOCHS", "1",
+             "LOG.ITER_VAL", "1", "LOG.ITER_TARGET", "1", *DATASET_SETS],
+            0, 4, device, card, phase="dataset")
+        need(all(isinstance(ds, packed.PackedDataset) for ds in (
+            abn.loaders.source, abn.loaders.target)),
+             "ABN: a train split not served from its pack")
+        # one validation round: every frame of the four val splits
+        routes("abn", 3 * DATASET_VAL + DATASET_TGT[0])
+        abn_last = os.path.join(abn.args.snapshot_dir, "last.pth")
+        del abn
+        torch.cuda.empty_cache()
+        sac, stages["sac"] = run_train_stage(
+            ce, ce_triton, "dataset_sac",
+            ["--cfg", TRAIN_CFG["sac"], *common, "--run", "sac",
+             "--resume", abn_last, "--set", *sets, "TRAIN.NUM_EPOCHS", "2",
+             "LOG.ITER_VAL", "100", "LOG.ITER_TARGET", "100",
+             *DATASET_SETS], 2, 3, device, card, phase="dataset")
+        # the target groups are decoded from PNGs at the crop size
+        routes("sac", 3 * sac.cfg.TRAIN.NUM_GROUPS)
+        del sac
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["decodes_by_route"] = decodes
+    out["train"] = {st: dict(
+        steps=o["steps"], step_ms=o["step_ms"],
+        loader_wait_ms=o["loader_wait_ms"], val_ms={
+            k: v["total"] for k, v in o["val_ms"].items()},
+        val_loader_wait_ms={k: v["loader_wait"]
+                            for k, v in o["val_ms"].items()},
+        ce_launches=o["ce_launches"]) for st, o in stages.items()}
+    log("dataset: %s" % json.dumps(out))
+    return stages
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=()):
     import argparse
@@ -1870,6 +2215,7 @@ def main(argv=()):
         lap_t[0] = now
 
     ptxas = build_cuda(ce)
+    native_build_s = build_native()
     paths_before = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
     checks = check_kernels(ce, device)
     need(all(ce.PATH_LAUNCHES[k]["bulk"]
@@ -1913,6 +2259,8 @@ def main(argv=()):
     lap("infer_cli")
     run_bench_infer(device)
     lap("bench_infer")
+    dataset = run_dataset(ce, ce_triton, device, card, native_build_s)
+    lap("dataset")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -1946,6 +2294,12 @@ def main(argv=()):
                         for st, o in train.items()}
             row.update(launches_train=sum(by_stage.values()),
                        launches_train_by_stage=by_stage)
+            # the trainer from the dataset tools' packs (phase 15)
+            by_stage = {st: o["ce_launches" if route == "cuda"
+                              else "triton_launches"][k]
+                        for st, o in dataset.items()}
+            row.update(launches_dataset=sum(by_stage.values()),
+                       launches_dataset_by_stage=by_stage)
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

@@ -9,16 +9,17 @@ this repo's ``configs/*.yaml`` load unmodified.  The YAML is read by
 The ``TPU`` section is kept whole so every config loads, but on one GPU:
 
   * ``TPU.COMPILE_CACHE`` (XLA's persistent compile cache),
-    ``TPU.RESIZE_METHOD`` (XLA's resize formulation), ``TPU.CKPT_LOSS``
-    (XLA loss rematerialization) and ``TPU.NATIVE_LOADER`` (the ``native/``
-    decoder) are accepted and not read;
+    ``TPU.RESIZE_METHOD`` (XLA's resize formulation) and ``TPU.CKPT_LOSS``
+    (XLA loss rematerialization) are accepted and not read;
   * ``TPU.MESH_DEVICES`` > 1, ``TPU.PARTITION`` "gspmd", ``TPU.MESH_SP`` > 1
     and ``TPU.REMAT`` other than "none" make the trainer raise
     ``NotImplementedError`` (multi-GPU training is still to be ported);
   * ``TPU.CE_IMPL`` "pallas" selects the CUDA CE kernels, "xla" the plain
     log-softmax; ``TPU.COMPUTE_DTYPE``, ``REFINE_DTYPE``, ``REFINE_RES``,
-    ``LOSS_DTYPE``, ``LOADER_THREADS``, ``PREFETCH`` and ``PACKED_DIR``
-    mean what they mean in ``dasac_tpu``.
+    ``LOSS_DTYPE``, ``LOADER_THREADS``, ``PREFETCH``, ``PACKED_DIR`` and
+    ``NATIVE_LOADER`` mean what they mean in ``dasac_tpu``, except that
+    the ``native/`` decoder, when on and not buildable, raises instead of
+    giving way to a Python decode.
 
 Usage:
     from dasac_tpu_torch.core.config import cfg, cfg_from_file, cfg_from_list
@@ -181,7 +182,8 @@ __C.TPU.RESIZE_METHOD = "matmul"
 # host data pipeline: number of decode threads and prefetch depth
 __C.TPU.LOADER_THREADS = 8
 __C.TPU.PREFETCH = 2
-# use the native C++ image decode/resize library when available
+# decode and resize PNGs with the native C++ library (native/dasac_io.cpp,
+# built at first use into build/native/; a failed build raises)
 __C.TPU.NATIVE_LOADER = True
 # serve splits from <DATASET.ROOT>/packed memmap packs when one matching the
 # split/size exists (see dasac_tpu/tools/pack_dataset.py); "" disables

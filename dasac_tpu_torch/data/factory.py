@@ -14,7 +14,7 @@ mode and current file list; the trainer passes ``num_replicas=1, rank=0``.
 
 import os
 
-from dasac_tpu_torch.data import host_loader, lists, packed, sampler
+from dasac_tpu_torch.data import host_loader, lists, native, packed, sampler
 from dasac_tpu_torch.data.category import get_class_names, get_num_classes
 from dasac_tpu_torch.data.png import png_size
 
@@ -83,6 +83,8 @@ class Loaders:
         root = cfg.DATASET.ROOT
         task = cfg.TRAIN.TASK
         crop = tuple(cfg.DATASET.CROP_SIZE)
+
+        native.set_enabled(cfg.TPU.NATIVE_LOADER)
 
         # ---- source train ---------------------------------------------------
         src_imgs, src_msks = lists.read_split(root, task)

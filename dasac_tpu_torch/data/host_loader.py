@@ -6,22 +6,30 @@ released), optionally resizes or crops, and stacks uint8 arrays; the
 augmentation runs on the card inside the train step.  Batches are
 prefetched ahead of the step.
 
-Decode policies (``mode``), the same as ``dasac_tpu``'s PIL path:
+Decode policies (``mode``), the same as ``dasac_tpu``'s:
 
-  * ``"resize"``: images with PIL-``BILINEAR`` semantics, i.e. antialiased
-    bilinear on a downscale, by ``F.interpolate(..., mode="bilinear",
-    antialias=True)`` on uint8 channels-last tensors on the CPU (torch's
-    uint8 path, which follows PIL's fixed-point filter: equal to PIL on
-    integer-ratio downscales, within 1 level elsewhere); masks with
-    PIL-``NEAREST`` index mapping (source coordinate ``scale/2 + k*scale``
-    accumulated in float64 and truncated, as PIL's affine scaler does), so
-    labels match exactly;
+  * ``"resize"``: with ``TPU.NATIVE_LOADER`` on (the default), PNG pairs go
+    through the C++ decoder (``data/native.py``, the library ``dasac_tpu``
+    loads), whose bilinear image resize is within a mean |d| of 1.5 levels
+    of PIL's and whose masks are PIL-``NEAREST``'s: the bytes
+    ``dasac_tpu`` gives.  A batch is one call into the library's thread
+    pool.  Otherwise, and for every sample the library refuses, images get
+    PIL-``BILINEAR`` semantics, i.e. antialiased bilinear on a downscale,
+    by ``F.interpolate(..., mode="bilinear", antialias=True)`` on uint8
+    channels-last tensors on the CPU (torch's uint8 path, which follows
+    PIL's fixed-point filter: equal to PIL on integer-ratio downscales,
+    within 1 level elsewhere); masks PIL-``NEAREST`` index mapping (source
+    coordinate ``scale/2 + k*scale`` accumulated in float64 and truncated,
+    as PIL's affine scaler does), so labels match exactly;
   * ``"center_crop"``: pad with the fill value, then slice (numpy);
   * ``"native"``: as decoded.
 
-``TPU.NATIVE_LOADER`` has no effect in the port: the ``native/`` C++
-decoder is not loaded (loading ``native/libdasac_io.so`` by path is later
-work), so every sample takes the path above.
+With ``TPU.NATIVE_LOADER`` on, ``"center_crop"`` and ``"native"`` samples
+are decoded by the library at the frame's own size, which is exact (the
+bytes of PIL's decode and of ``data/png.py``'s), unless the mask is of a
+colour type other than gray or palette: the library's luma of such a mask
+is not PIL's ``convert("L")``, so that pair is decoded in Python.
+``native.PATH_DECODES`` counts every decoded sample by route.
 """
 
 import os
@@ -33,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dasac_tpu_torch.data import png
+from dasac_tpu_torch.data import native, png
 from dasac_tpu_torch.data.category import IGNORE_LABEL
 
 
@@ -63,8 +71,47 @@ def resize_mask(mask, out_hw):
                        _nearest_index(w, out_hw[1]))]
 
 
+def _is_png(path):
+    return path is None or path.endswith(".png")
+
+
+def _exact_mask(mask_path):
+    """Whether the library decodes this mask as the Python path does: no
+    mask, or an 8-bit gray or palette PNG (colour type 0 or 3)."""
+    return mask_path is None or png.ihdr(mask_path)[2:] in ((8, 0), (8, 3))
+
+
+def _load_native(img_path, mask_path, out_hw, mode):
+    """The pair through the C++ decoder, or None where it takes the Python
+    path: resized to ``out_hw`` in ``resize`` mode, else decoded exactly at
+    its own size (and cropped in ``center_crop`` mode)."""
+    if not (_is_png(img_path) and _is_png(mask_path)):
+        return None
+    if mode == "resize" and out_hw is not None:
+        return native.decode_pair(img_path, mask_path, out_hw,
+                                  mask_fill=IGNORE_LABEL)
+    if not _exact_mask(mask_path):
+        return None
+    hw = native.png_info(img_path)
+    res = hw and native.decode_pair(img_path, mask_path, hw,
+                                    mask_fill=IGNORE_LABEL)
+    if res is None or mode != "center_crop":
+        return res
+    img, mask = res
+    return (np.ascontiguousarray(_center_crop(img, out_hw, fill=0)),
+            np.ascontiguousarray(_center_crop(mask, out_hw,
+                                              fill=IGNORE_LABEL)))
+
+
 def _load_pair(img_path, mask_path, out_hw, mode):
     """Decode one (image, mask) pair to uint8 arrays sized ``out_hw``."""
+    if mode not in ("resize", "center_crop", "native"):
+        raise ValueError(mode)
+    if native.enabled():
+        res = _load_native(img_path, mask_path, out_hw, mode)
+        if res is not None:
+            return res
+    native.count("python")
     img = png.to_rgb(png.read(img_path))
     if mask_path is None:
         mask = np.full(img.shape[:2], IGNORE_LABEL, np.uint8)
@@ -76,17 +123,13 @@ def _load_pair(img_path, mask_path, out_hw, mode):
         raise ValueError("image %s is %s, mask %s is %s" % (
             img_path, img.shape[:2], mask_path, mask.shape))
 
-    if mode == "native":
-        pass
-    elif mode == "resize":
+    if mode == "resize":
         if out_hw is not None and img.shape[:2] != tuple(out_hw):
             img = resize_image(img, out_hw)
             mask = resize_mask(mask, out_hw)
     elif mode == "center_crop":
         img = _center_crop(img, out_hw, fill=0)
         mask = _center_crop(mask, out_hw, fill=IGNORE_LABEL)
-    else:
-        raise ValueError(mode)
     return np.ascontiguousarray(img), np.ascontiguousarray(mask)
 
 
@@ -129,10 +172,32 @@ class SegDataset:
         i = i % len(self.images)
         return _load_pair(self.images[i], self.masks[i], self.out_hw, self.mode)
 
-    def load_batch(self, idxs, pool=None, threads=None):
-        """list[(img, mask)] ordered like ``idxs``, decoded on ``pool``."""
-        return list(pool.map(self.load, idxs) if pool
-                    else map(self.load, idxs))
+    def _native_eligible(self, i):
+        return (i >= 0 and self.mode == "resize" and self.out_hw is not None
+                and _is_png(self.images[i % len(self.images)])
+                and _is_png(self.masks[i % len(self.images)]))
+
+    def load_batch(self, idxs, pool=None, threads=8):
+        """list[(img, mask)] ordered like ``idxs``.  With the native decoder
+        on, the batch's resize-mode PNG samples are ONE call into the C++
+        thread pool (decode + unfilter + resize with the GIL released); the
+        rest, and the samples it refuses, are decoded on ``pool``."""
+        out = [None] * len(idxs)
+        sel = [j for j, i in enumerate(idxs) if self._native_eligible(i)]
+        if sel and native.enabled():
+            ii = [idxs[j] % len(self.images) for j in sel]
+            imgs, masks, status = native.decode_batch(
+                [self.images[i] for i in ii], [self.masks[i] for i in ii],
+                self.out_hw, threads=threads, mask_fill=IGNORE_LABEL)
+            for k, j in enumerate(sel):
+                if status[k] == 0:
+                    out[j] = (imgs[k], masks[k])
+        rest = [j for j in range(len(idxs)) if out[j] is None]
+        loaded = (pool.map(self.load, [idxs[j] for j in rest]) if pool
+                  else map(self.load, [idxs[j] for j in rest]))
+        for j, pair in zip(rest, loaded):
+            out[j] = pair
+        return out
 
     def mask_basenames(self):
         return [None if m is None else os.path.basename(m) for m in self.masks]

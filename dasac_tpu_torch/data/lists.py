@@ -31,12 +31,14 @@ def find_split_file(root, split, list_dir=None):
     return split_fn
 
 
-def read_split(root, split, list_dir=None):
+def read_split(root, split, list_dir=None, must_exist=True):
     """Returns (image_paths, mask_paths) — mask is None when absent.
 
     Image/mask paths always resolve against ``root`` (the reference's
     DATASET.ROOT contract); the list file itself may live elsewhere
     (``list_dir``, e.g. an explicit --infer-list path's directory).
+    ``must_exist=False`` skips the per-file existence asserts (the dataset
+    checker counts the missing files itself).
     """
     split_fn = find_split_file(root, split, list_dir)
     images, masks = [], []
@@ -46,11 +48,13 @@ def read_split(root, split, list_dir=None):
             if not parts or not parts[0]:
                 continue
             img = os.path.join(root, parts[0].lstrip("/"))
-            assert os.path.isfile(img), "{} not found".format(img)
+            if must_exist:
+                assert os.path.isfile(img), "{} not found".format(img)
             images.append(img)
             if len(parts) == 2:
                 msk = os.path.join(root, parts[1].lstrip("/"))
-                assert os.path.isfile(msk), "{} not found".format(msk)
+                if must_exist:
+                    assert os.path.isfile(msk), "{} not found".format(msk)
                 masks.append(msk)
             else:
                 masks.append(None)

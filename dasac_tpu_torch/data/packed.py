@@ -3,11 +3,9 @@ copy of ``dasac_tpu/data/packed.py``, same v2 format).
 
 The reference decodes PNGs on every epoch through PIL worker processes
 (reference datasets/dataloader_seg.py:28-161); on hosts with few cores the
-decode becomes the training bottleneck, and the port's own PNG decoder
-(``data/png.py``) is slow on Average/Paeth-filtered rows.  Packing decodes
-each split ONCE offline (``python -m dasac_tpu.tools.pack_dataset`` on a
-host with PIL, or :func:`write_pack` here from the port's ``SegDataset``)
-into
+decode becomes the training bottleneck.  Packing decodes each split ONCE
+offline (``python -m dasac_tpu_torch.tools.pack_dataset``, which calls
+:func:`write_pack` with the port's ``SegDataset``) into
 
     <packed_dir>/<split>_<H>x<W>.imgs.u8   [n, H, W, 3] uint8, C order
     <packed_dir>/<split>_<H>x<W>.msks.u8   [n, H, W]    uint8

@@ -1,28 +1,34 @@
 """PNG codec in numpy + zlib: the port's image I/O without PIL.
 
-Non-interlaced 8-bit PNGs, and 16-bit gray for reading.
+Non-interlaced 8-bit PNGs, and 16-bit ones for reading.
 
-* :func:`read` decodes colour types 0 (gray, 8- or 16-bit; 16-bit samples
-  come back as uint16), 2 (RGB), 3 (palette: the pixels are the palette
-  *indices*, the palette is returned beside them) and 6 (RGBA), with all
-  five row filters.  None, Sub and Up rows are unfiltered
-  with whole-row numpy operations; Average and Paeth rows depend on the
-  pixel to their left after unfiltering and go byte by byte in Python,
-  which is slow (real datasets are read from packs, ``data/packed.py``).
+* :func:`read` decodes colour types 0 (gray), 2 (RGB), 3 (palette: the
+  pixels are the palette *indices*, the palette is returned beside them)
+  and 6 (RGBA) at 8 bits, and 0, 2, 4 (gray + alpha) and 6 at 16 bits
+  (uint16 samples: SYNTHIA's ground truth), with all five row filters.
+  None, Sub and Up rows are unfiltered with whole-row numpy operations;
+  Average and Paeth rows depend on the pixel to their left after
+  unfiltering, so an image that has any is unfiltered one anti-diagonal of
+  pixels at a time (w + h - 1 numpy steps), which is still far slower than
+  C: the loader decodes through the C++ library (``data/native.py``) or
+  from packs (``data/packed.py``).
 * :func:`to_rgb` and :func:`to_mask` turn a decoded image into what
   ``dasac_tpu``'s loader takes from PIL: ``convert("RGB")`` for images
   (gray replicated, palette looked up, alpha dropped), and for masks the
   raw palette indices of a colour-type-3 file or else ``convert("L")``
   (ITU-R 601-2 luma in PIL's fixed-point arithmetic).  Both take 8-bit
-  images only.
+  images, and :func:`to_mask` 16-bit gray too, clipped at 255 as PIL's
+  ``convert("L")`` clips its "I;16" mode.
 * :func:`write` encodes gray ``[H, W]`` or RGB ``[H, W, 3]`` uint8 arrays,
   or ``[H, W]`` palette indices with their ``[n, 3]`` palette (colour type
   3, a ``PLTE`` chunk), every row with one chosen filter (0, None, by
   default).
-* :func:`png_size` reads ``(H, W)`` from the IHDR chunk alone.
+* :func:`ihdr` reads ``(H, W, bit depth, colour type)`` from the IHDR
+  chunk alone, :func:`png_size` ``(H, W)``.
 
-Anything else (16-bit colour, sub-byte samples, interlacing, gray+alpha, a
-file that is not a PNG) raises :class:`PngError` naming the file.
+Anything else (sub-byte samples, interlacing, 8-bit gray+alpha, 16-bit
+palette, a file that is not a PNG) raises :class:`PngError` naming the
+file.
 """
 
 import struct
@@ -32,7 +38,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_TYPES = {8: (0, 2, 3, 6), 16: (0, 2, 4, 6)}   # colour types by bit depth
 
 
 class PngError(ValueError):
@@ -41,7 +48,7 @@ class PngError(ValueError):
 
 class PngImage(NamedTuple):
     pixels: np.ndarray            # uint8 [H, W] (gray, indices) or [H, W, C];
-    #                               uint16 [H, W] for 16-bit gray
+    #                               uint16 at 16 bits
     color_type: int
     palette: Optional[np.ndarray]  # uint8 [n, 3] for colour type 3
     bit_depth: int = 8
@@ -52,11 +59,10 @@ def _header(ihdr, path):
         raise PngError("%s: bad IHDR chunk" % path)
     w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB",
                                                               ihdr)
-    if ctype not in _CHANNELS or depth not in ((8, 16) if ctype == 0
-                                               else (8,)):
+    if ctype not in _TYPES.get(depth, ()):
         raise PngError("%s: bit depth %d, colour type %d: only 8-bit gray, "
-                       "RGB, palette and RGBA and 16-bit gray are supported"
-                       % (path, depth, ctype))
+                       "RGB, palette and RGBA and 16-bit gray, RGB, gray + "
+                       "alpha and RGBA are supported" % (path, depth, ctype))
     if interlace:
         raise PngError("%s: interlaced PNGs are not supported" % path)
     if comp or filt:
@@ -64,14 +70,20 @@ def _header(ihdr, path):
     return h, w, ctype, depth
 
 
-def png_size(path):
-    """(H, W) of the PNG at ``path``, from its IHDR chunk."""
+def ihdr(path):
+    """(H, W, bit depth, colour type) of the PNG at ``path``, from its IHDR
+    chunk alone."""
     with open(path, "rb") as f:
-        head = f.read(33)
-    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        head = f.read(26)
+    if len(head) < 26 or head[:8] != SIGNATURE or head[12:16] != b"IHDR":
         raise PngError("%s: not a PNG file" % path)
     w, h = struct.unpack(">II", head[16:24])
-    return h, w
+    return h, w, head[24], head[25]
+
+
+def png_size(path):
+    """(H, W) of the PNG at ``path``, from its IHDR chunk."""
+    return ihdr(path)[:2]
 
 
 def read(path):
@@ -110,14 +122,13 @@ def read(path):
     except zlib.error as e:
         raise PngError("%s: %s" % (path, e)) from None
     channels = _CHANNELS[color_type]
-    # filters work on bytes: a 16-bit gray pixel is 2 of them
+    # filters work on bytes: a 16-bit pixel is 2 of them per channel
     pixels = _unfilter(raw, h, w, channels * depth // 8, path)
     if depth == 16:   # big-endian samples
-        return PngImage(pixels.view(">u2").astype(np.uint16).reshape(h, w),
-                        color_type, palette, depth)
+        pixels = pixels.view(">u2").astype(np.uint16)
     pixels = (pixels.reshape(h, w, channels) if channels > 1
               else pixels.reshape(h, w))
-    return PngImage(pixels, color_type, palette)
+    return PngImage(pixels, color_type, palette, depth)
 
 
 def _unfilter(raw, h, w, bpp, path):
@@ -131,6 +142,8 @@ def _unfilter(raw, h, w, bpp, path):
         raise PngError("%s: unknown row filter %d" % (path, kinds.max()))
     if not kinds.any():
         return data.copy()
+    if kinds.max() >= 3:
+        return _unfilter_diagonals(data, kinds, h, w, bpp)
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -140,37 +153,58 @@ def _unfilter(raw, h, w, bpp, path):
         elif kind == 1:   # Sub: a running sum along the row, per channel
             out[y] = np.cumsum(cur.reshape(w, bpp), axis=0,
                                dtype=np.uint8).reshape(-1)
-        elif kind == 2:   # Up
+        else:             # Up
             out[y] = cur + prev
-        elif kind == 3:
-            out[y] = np.frombuffer(_average_row(cur, prev, bpp), np.uint8)
-        else:
-            out[y] = np.frombuffer(_paeth_row(cur, prev, bpp), np.uint8)
         prev = out[y]
     return out
 
 
-def _average_row(cur, prev, bpp):
-    out = bytearray(cur.tobytes())
-    up = prev.tobytes()
-    for i in range(bpp):
-        out[i] = (out[i] + (up[i] >> 1)) & 0xFF
-    for i in range(bpp, len(out)):
-        out[i] = (out[i] + ((out[i - bpp] + up[i]) >> 1)) & 0xFF
-    return out
+def _shear(a, width, row_step):
+    """The contiguous ``a`` [h, m, c] read as [h, width, c] with each row
+    starting ``row_step`` pixels after the one before.  With ``row_step``
+    m - 1, row y is shifted right by y (``[y, j]`` reads ``a[y, j - y]``;
+    where j < y it reads the end of row y - 1, which holds zeros when
+    ``a`` has h zero columns on its right); with m + 1, shifted left by y
+    (``[y, x]`` reads ``a[y, x + y]``)."""
+    h, _, c = a.shape
+    return np.lib.stride_tricks.as_strided(
+        a, shape=(h, width, c),
+        strides=(row_step * c * a.itemsize, c * a.itemsize, a.itemsize))
 
 
-def _paeth_row(cur, prev, bpp):
-    out = bytearray(cur.tobytes())
-    up = prev.tobytes()
-    for i in range(bpp):   # a = c = 0: the predictor is b
-        out[i] = (out[i] + up[i]) & 0xFF
-    for i in range(bpp, len(out)):
-        a, b, c = out[i - bpp], up[i], up[i - bpp]
-        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        out[i] = (out[i] + pred) & 0xFF
-    return out
+def _unfilter_diagonals(data, kinds, h, w, bpp):
+    """Unfilter rows with Average or Paeth filters (and any others) in
+    numpy.  A byte depends on the bytes of the same channel to its left,
+    above and above-left, so all the pixels of one anti-diagonal (x + y =
+    d) can be unfiltered at once from the two diagonals before it: w + h - 1
+    vectorised steps instead of a Python step per byte.  The image is
+    sheared so each diagonal is one contiguous ``[h, bpp]`` slab."""
+    n = w + h - 1
+    padded = np.zeros((h, w + h, bpp), np.uint8)
+    padded[:, :w] = data.reshape(h, w, bpp)
+    # diag[d, y] = pixel (y, d - y); zero where d - y is off the image
+    diag = _shear(padded, n, n).transpose(1, 0, 2).astype(np.int16)
+    # out[d + 2, y + 1]: two zero diagonals before the first and a zero row
+    # above the first, so every neighbour of an edge pixel reads 0
+    out = np.zeros((n + 2, h + 1, bpp), np.int16)
+    kind = kinds.astype(np.intp)[:, None]
+    has_avg, has_paeth = (kinds == 3).any(), (kinds == 4).any()
+    zero = np.zeros((h, bpp), np.int16)
+    for d in range(n):
+        a, b, c = out[d + 1, 1:], out[d + 1, :-1], out[d, :-1]
+        avg = (a + b) >> 1 if has_avg else zero
+        if has_paeth:
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            paeth = np.where((pa <= pb) & (pa <= pc), a,
+                             np.where(pb <= pc, b, c))
+        else:
+            paeth = zero
+        pred = np.choose(kind, (zero, a, b, avg, paeth))
+        out[d + 2, 1:] = (diag[d] + pred) & 0xFF
+    sheared = np.ascontiguousarray(out[2:, 1:].transpose(1, 0, 2),
+                                   dtype=np.uint8)
+    return np.ascontiguousarray(_shear(sheared, w, n + 1)).reshape(
+        h, w * bpp)
 
 
 def _eight_bit(img):
@@ -178,6 +212,13 @@ def _eight_bit(img):
         raise PngError("a %d-bit image where an 8-bit one is needed"
                        % img.bit_depth)
     return img.pixels
+
+
+def luma(rgb):
+    """uint8 [H, W] of uint8 [H, W, 3]: PIL's ``convert("L")``."""
+    rgb = np.asarray(rgb)[..., :3].astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
 
 
 def to_rgb(img):
@@ -198,12 +239,12 @@ def to_rgb(img):
 def to_mask(img):
     """uint8 [H, W]: palette indices for colour type 3 (trainIds stored as
     indices), otherwise PIL's ``convert("L")``."""
+    if img.bit_depth == 16 and img.color_type == 0:
+        return np.minimum(img.pixels, 255).astype(np.uint8)
     px = _eight_bit(img)
     if img.color_type in (0, 3):
         return px
-    rgb = px[..., :3].astype(np.uint32)
-    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
-             + 0x8000) >> 16).astype(np.uint8)
+    return luma(px)
 
 
 def _paeth(a, b, c):

@@ -7,14 +7,16 @@ five filter types written by the port's encoder reads back equal through
 PIL and through the port.
 
 Loaders: on a root written by dasac_tpu's ``make_synthetic_root``, with
-``TPU.NATIVE_LOADER False`` and ``TPU.PACKED_DIR ""`` on both sides (JAX
-decodes through PIL), for the same seed: ``steps_per_epoch``, every source
-and target batch of epochs 0 and 1 (SAC with importance sampling and IS
-weights, and ABN), and the val splits in ``resize`` and ``center_crop``
-modes.  Masks are exactly equal.  Images are exactly equal where no resize
-happens and within 1 uint8 level where one does (torch's uint8
-antialiased bilinear against PIL's; the share of pixels that differ is
-printed and bounded by 5%).
+``TPU.PACKED_DIR ""`` on both sides, for the same seed:
+``steps_per_epoch``, every source and target batch of epochs 0 and 1 (SAC
+with importance sampling and IS weights, and ABN), and the val splits in
+``resize`` and ``center_crop`` modes.  With ``TPU.NATIVE_LOADER False`` on
+both sides (JAX decodes through PIL) masks are exactly equal, and images
+are exactly equal where no resize happens and within 1 uint8 level where
+one does (torch's uint8 antialiased bilinear against PIL's; the share of
+pixels that differ is printed and bounded by 5%).  With ``TPU.NATIVE_LOADER
+True`` (the default) on both sides every batch is byte-equal: both decode
+and resize through the same C++ library.
 
 Packs: a pack written by dasac_tpu's ``write_pack`` reads equal through
 the port (and the port's factory picks it up); the port's ``write_pack``
@@ -48,16 +50,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_RESIZE_SHARE = 0.05
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _keep_native_loader_flag():
-    """dasac_tpu's Loaders set its process-global native-decoder flag from
-    TPU.NATIVE_LOADER (False here): put it back for the tests that follow
-    in this process."""
-    from dasac_tpu.data import native
+@pytest.fixture(autouse=True)
+def _keep_native_loader_flags():
+    """Both packages' Loaders set their process-global native-decoder flag
+    from TPU.NATIVE_LOADER: put them back for the tests that follow in
+    this process."""
+    from dasac_tpu.data import native as jnative
+    from dasac_tpu_torch.data import native as tnative
 
-    enabled = native._enabled
+    flags = jnative._enabled, tnative.enabled()
     yield
-    native.set_enabled(enabled)
+    jnative.set_enabled(flags[0])
+    tnative.set_enabled(flags[1])
 
 
 @pytest.fixture(autouse=True)
@@ -144,19 +148,52 @@ def test_png_encoder_filters_read_by_pil(tmp_path, filter_type):
         np.testing.assert_array_equal(png.read(path).pixels, arr)
 
 
+def _unfilter_bytewise(data, kinds, bpp):
+    """The PNG specification's unfilter, one byte at a time."""
+    out = np.zeros(data.shape, np.int64)
+    for y, x in np.ndindex(*data.shape):
+        a = out[y, x - bpp] if x >= bpp else 0
+        b = out[y - 1, x] if y else 0
+        c = out[y - 1, x - bpp] if y and x >= bpp else 0
+        p = a + b - c
+        pred = (0, a, b, (a + b) // 2,
+                a if abs(p - a) <= min(abs(p - b), abs(p - c))
+                else (b if abs(p - b) <= abs(p - c) else c))[kinds[y]]
+        out[y, x] = (data[y, x] + pred) & 0xFF
+    return out.astype(np.uint8)
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])
+def test_png_unfilter_of_mixed_rows_equals_bytewise(bpp):
+    """Images with Average or Paeth rows among the others are unfiltered
+    along anti-diagonals; every byte is the specification's."""
+    rng = np.random.RandomState(bpp)
+    for h, w in ((1, 1), (1, 9), (7, 1), (6, 11), (13, 5)):
+        data = rng.randint(0, 256, (h, w * bpp)).astype(np.uint8)
+        kinds = rng.randint(0, 5, h).astype(np.uint8)
+        kinds[rng.randint(h)] = 3 + rng.randint(2)
+        raw = np.concatenate([kinds[:, None], data], 1).tobytes()
+        np.testing.assert_array_equal(
+            png._unfilter(raw, h, w, bpp, "x.png"),
+            _unfilter_bytewise(data, kinds, bpp))
+
+
 def test_png_rejects_what_it_does_not_read(tmp_path):
-    # 16-bit gray is read (as uint16, for the offline scorer), but is no
-    # image or mask for the loaders
+    # 16-bit gray is read (as uint16, for the offline scorer); it is no
+    # image for the loaders, and a mask as PIL's convert("L") reads it
+    # (clipped at 255)
     i16 = str(tmp_path / "i16.png")
-    Image.fromarray(np.arange(12, dtype=np.uint16).reshape(3, 4) * 1000
+    Image.fromarray(np.arange(12, dtype=np.uint16).reshape(3, 4) * 40
                     ).save(i16)
     img = png.read(i16)
     with Image.open(i16) as ref:
         np.testing.assert_array_equal(img.pixels, np.asarray(ref))
+        np.testing.assert_array_equal(png.to_mask(img),
+                                      np.asarray(ref.convert("L")))
     assert img.pixels.dtype == np.uint16 and img.bit_depth == 16
-    for convert in (png.to_rgb, png.to_mask):
-        with pytest.raises(png.PngError, match="16-bit"):
-            convert(img)
+    assert png.to_mask(img).max() == 255
+    with pytest.raises(png.PngError, match="16-bit"):
+        png.to_rgb(img)
     cases = {
         "la.png": lambda p: Image.new("LA", (4, 3)).save(p),
         "bits1.png": lambda p: Image.new("1", (4, 3)).save(p),
@@ -215,15 +252,20 @@ def _is_weights(root, path):
     return path
 
 
-def _loaders(root, sets, seed=3):
+def _loaders(root, sets, seed=3, native=False):
     out = []
     for mod, fac in ((jconfig, jfactory), (tconfig, tfactory)):
         mod.reset_cfg()
         mod.cfg_from_file(os.path.join(REPO, "configs", "tiny_cpu.yaml"))
         mod.cfg_from_list(["DATASET.ROOT", root, "TPU.NATIVE_LOADER",
-                           "False", "TPU.PACKED_DIR", "", "TRAIN.NUM_GROUPS",
-                           "2", "TPU.LOADER_THREADS", "3"] + sets)
+                           str(native), "TPU.PACKED_DIR", "",
+                           "TRAIN.NUM_GROUPS", "2", "TPU.LOADER_THREADS",
+                           "3"] + sets)
         out.append(fac.Loaders(mod.cfg, seed=seed))
+    if native:
+        from dasac_tpu.data import native as jnative
+
+        assert jnative.available(), "dasac_tpu would decode with PIL"
     return out
 
 
@@ -250,12 +292,16 @@ def _compare(ours, ref, resized, what):
         assert share < MAX_RESIZE_SHARE, what
 
 
-@pytest.mark.parametrize("mode", ["sac", "abn"])
-def test_train_batches_equal_jax(jax_root, tmp_path, mode):
+# "-native": TPU.NATIVE_LOADER True on both sides, batches byte-equal
+@pytest.mark.parametrize("mode,native", [
+    pytest.param("sac", False, id="sac"), pytest.param("abn", False, id="abn"),
+    pytest.param("sac", True, id="sac-native"),
+    pytest.param("abn", True, id="abn-native")])
+def test_train_batches_equal_jax(jax_root, tmp_path, mode, native):
     sets = (["DATASET.SAMPLE_WEIGHTS",
              _is_weights(jax_root, str(tmp_path / "w.pkl"))]
             if mode == "sac" else ["MODEL.BASELINE", "True"])
-    ref, ours = _loaders(jax_root, sets)
+    ref, ours = _loaders(jax_root, sets, native=native)
     assert ours.steps_per_epoch() == ref.steps_per_epoch() == 3
     assert (ours.importance is None) == (ref.importance is None) == \
         (mode == "abn")
@@ -264,20 +310,33 @@ def test_train_batches_equal_jax(jax_root, tmp_path, mode):
             epoch)
         _compare(_batches(ts), _batches(js), False,
                  "%s source epoch %d" % (mode, epoch))
-        _compare(_batches(tt), _batches(jt), mode == "sac",
+        _compare(_batches(tt), _batches(jt), mode == "sac" and not native,
                  "%s target epoch %d" % (mode, epoch))
 
 
-@pytest.mark.parametrize("val_crop", ["True", "False"])
-def test_val_batches_equal_jax(jax_root, val_crop):
-    ref, ours = _loaders(jax_root, ["DATASET.VAL_CROP", val_crop])
+@pytest.mark.parametrize("val_crop,native", [
+    pytest.param("True", False, id="True"),
+    pytest.param("False", False, id="False"),
+    pytest.param("True", True, id="True-native"),
+    pytest.param("False", True, id="False-native")])
+def test_val_batches_equal_jax(jax_root, val_crop, native):
+    from dasac_tpu_torch.data import native as tnative
+
+    before = dict(tnative.PATH_DECODES)
+    ref, ours = _loaders(jax_root, ["DATASET.VAL_CROP", val_crop],
+                         native=native)
     assert list(ours.val) == list(ref.val) and ours.testset == ref.testset
     for split in ours.val:
         for bs in (2, 4):
             _compare(_batches(ours.val_loader(split, batch_size=bs)),
                      _batches(ref.val_loader(split, batch_size=bs)),
-                     val_crop == "False" and split != "train_cityscapes",
+                     val_crop == "False" and split != "train_cityscapes"
+                     and not native,
                      "%s val_crop %s bs %d" % (split, val_crop, bs))
+    # every frame took the route the flag chose
+    routes = {k: tnative.PATH_DECODES[k] - before[k] for k in before}
+    assert routes["native" if native else "python"] > 0, routes
+    assert routes["python" if native else "native"] == 0, routes
 
 
 def test_packs_read_and_write_like_jax(jax_root, tmp_path):

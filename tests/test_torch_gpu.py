@@ -14,7 +14,9 @@ inference program's labels are the argmax of its probabilities, which
 agree with the CPU's within 1e-5.  The kernels are held against their
 plain versions at the VGG ABN step's 16x640x640 rows, one FCN8s SAC step
 is counted at 2 + 2 launches on the bulk path, and ``run_inference``'s
-exported labels are the argmax of its exported probabilities.
+exported labels are the argmax of its exported probabilities.  The card's
+machine builds the C++ PNG decoder, and a resize-mode batch takes its
+native route.
 
 Without a card every test here skips.  Tolerances, absolute: NLL 1e-4 (a
 few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
@@ -389,3 +391,35 @@ def test_run_inference_labels_are_the_argmax_of_its_raw_probs(cuda,
         top2 = np.sort(raw[differ].astype(np.float32), axis=-1)[:, -2:]
         assert (top2[:, 0] == top2[:, 1]).all()
         assert differ.mean() < 0.01
+
+
+def test_resize_batches_take_the_native_route_on_the_card_host(cuda,
+                                                               tmp_path):
+    """The card's machine builds the C++ decoder (g++, zlib) and the loader
+    decodes a resize-mode batch of Paeth and Average PNGs through it."""
+    import numpy as np
+
+    from dasac_tpu_torch.data import host_loader, native, png
+
+    rng = np.random.RandomState(0)
+    images, masks = [], []
+    for i, filt in enumerate((4, 3, 4)):
+        images.append(str(tmp_path / ("i%d.png" % i)))
+        masks.append(str(tmp_path / ("m%d.png" % i)))
+        png.write(images[-1], (rng.rand(48, 80, 3) * 255).astype(np.uint8),
+                  filt)
+        png.write(masks[-1], rng.randint(0, 19, (48, 80)).astype(np.uint8),
+                  filt)
+    ds = host_loader.SegDataset(images, masks, (24, 40), "resize")
+    flag, before = native.enabled(), dict(native.PATH_DECODES)
+    native.set_enabled(True)
+    try:
+        batch = ds.load_batch([0, 1, 2, -1], threads=2)
+    finally:
+        native.set_enabled(flag)
+    assert {k: native.PATH_DECODES[k] - before[k] for k in before} == {
+        "native": 3, "python": 0}
+    for (img, mask), i in zip(batch[:3], range(3)):
+        want = png.to_mask(png.read(masks[i]))[1::2, 1::2]
+        assert img.shape == (24, 40, 3)
+        np.testing.assert_array_equal(mask, want)

@@ -66,7 +66,11 @@ def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
                  "data/synth.py", "data/factory.py", "train/loop.py",
                  "train/cli.py", "utils/logging.py", "utils/visualise.py",
                  "nn/vgg.py", "infer/cli.py", "tools/evaluate_miou.py",
-                 "tools/compute_is_weights.py", "tools/bench_infer.py"):
+                 "tools/compute_is_weights.py", "tools/bench_infer.py",
+                 "data/native.py", "data/native_build.py",
+                 "data/id_mappers.py", "data/png16.py",
+                 "tools/convert_train_ids.py", "tools/make_split_lists.py",
+                 "tools/check_dataset.py", "tools/pack_dataset.py"):
         assert REPO / "dasac_tpu_torch" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}
