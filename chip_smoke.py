@@ -116,7 +116,32 @@ no result line:
               and ``DATASET.VAL_CROP True``: ABN (2 epochs of 2 steps, one
               validation round center-cropped through the C++ decoder),
               SAC from its ``last.pth`` (1 epoch of 3 steps), checked as
-              in phase 10; every decode of the loader on the native route.
+              in phase 10; every decode of the loader on the native route;
+ 16. ddp      data-parallel training (``core/dist.py``): (a) a NCCL world
+              of one rank in this process: one flagship SAC and one ABN
+              step with the group (every collective runs) and twice
+              without, from the same state and augmented inputs, cuDNN
+              deterministic: losses and every tensor of the state equal
+              (max abs diff at most twice that between the two runs
+              without a group, which is 0 when the step is
+              deterministic), the collectives a step counted; then phase
+              10's three CLI stages on phase 10's root, each a
+              torchrun-style launch of one rank
+              (``--multiprocessing-distributed``, the environment set
+              here), measured and checked as in phase 10 (the trainer
+              ran in the world, one event record a tag and epoch); (b)
+              two spawned ranks sharing the card over gloo with CUDA
+              tensors: per rank its half of the flagship SAC batch (4
+              source frames, 1 group) and of the ABN batch (6 + 4
+              frames), augmented with its own generator, one step each
+              from the same state (held, bit-equal on both ranks, against
+              a single-process emulation of the two ranks: SAC and an
+              ABN step on a shallow r101 at the same batch within rtol
+              1e-3 / atol 1e-5 and an update error under 5e-2, the
+              full-depth ABN step on its forward, see ``DDP_KINDS``),
+              then a second step timed; per rank step ms, peak memory,
+              the gradient all-reduce's ms and bytes, the BN collectives
+              a step, start and group set-up seconds.
 Each phase prints one JSON line with the card's name and power limit.
 Phases 10, 13, 14 and 15 call each entry point with cuDNN autotuning off,
 as a new process starts, and check that the entry point turned it on.
@@ -124,8 +149,9 @@ as a new process starts, and check that the entry point turned it on.
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``; the CUDA rows of the kernels
 line carry the trainer's launches (``launches_train``), the VGG steps'
-(``launches_vgg``) and the trainer's from the dataset tools' packs
-(``launches_dataset``).
+(``launches_vgg``), the trainer's from the dataset tools' packs
+(``launches_dataset``) and phase 16's by part (``launches_ddp``: the NCCL
+world's steps and CLI stages, each gloo rank's steps).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -530,18 +556,23 @@ def sac_step_config():
         ce_impl="kernel")
 
 
-def flagship_state(device, seed=SEED):
-    """Full-width, full-depth ``deeplabv2_resnet101`` in bf16 with random
-    weights from ``seed``, its SGD and train state."""
+def flagship_state(device, seed=SEED, group=None, dtype=None, **model_kw):
+    """Full-width, full-depth ``deeplabv2_resnet101`` in bf16 (or
+    ``dtype``) with random weights from ``seed``, its SGD and train state;
+    ``group``: the process group of its BN layers' cross-replica
+    statistics; ``model_kw`` go to ``build_model`` (``layers`` for a
+    shallower trunk)."""
     import torch
 
     from dasac_tpu_torch.core.state import create_train_state
     from dasac_tpu_torch.nn.factory import build_model
     from dasac_tpu_torch.train import optim
 
-    model = build_model("deeplabv2_resnet101", C, dtype=torch.bfloat16,
-                        remat="none", device=device,
-                        generator=torch.Generator().manual_seed(seed))
+    model = build_model("deeplabv2_resnet101", C,
+                        dtype=dtype or torch.bfloat16,
+                        remat="none", device=device, group=group,
+                        generator=torch.Generator().manual_seed(seed),
+                        **model_kw)
     opt = optim.build_optimizer(_ModelCfg, "deeplabv2_resnet101", model)
     return create_train_state(model, opt, C, device=device)
 
@@ -1199,11 +1230,12 @@ def measured_trainer(probe, check_resume=None):
                 return out
 
             self.train_step = timed_step
+            self.in_validation = False
             train_loaders = self.loaders.train_loaders
 
-            def timed_loaders(epoch, replicated_eval=False):
-                src, tgt = train_loaders(epoch, replicated_eval)
-                if replicated_eval:   # target validation
+            def timed_loaders(epoch):
+                src, tgt = train_loaders(epoch)
+                if self.in_validation:   # target validation
                     return src, _TimedLoader(tgt, probe["val_wait"])
                 probe["epoch_starts"].append(len(probe["host_ms"]))
                 return (_TimedLoader(src, probe["wait_src"]),
@@ -1237,7 +1269,12 @@ def measured_trainer(probe, check_resume=None):
             for k in ("val_wait", "val_eval", "val_panel"):
                 probe[k].clear()
             t0 = time.perf_counter()
-            out = super().validation(epoch, split, max_batches, target_mode)
+            self.in_validation = True
+            try:
+                out = super().validation(epoch, split, max_batches,
+                                         target_mode)
+            finally:
+                self.in_validation = False
             _sync(self.device)
             key = ("target:" if target_mode else "") + split
             probe["val_ms"][key] = dict(
@@ -1285,12 +1322,16 @@ def _events(logdir):
 
 def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
                     device, card, bare_ms=None, check_resume=None,
-                    phase="train"):
+                    phase="train", world=False):
     """One ``cli.main`` run, measured from outside the trainer; checks its
-    losses, CE launches, events, snapshots and start epoch."""
+    losses, CE launches, events, snapshots and start epoch.  ``world``: the
+    run joins a NCCL world of one as torchrun launches it (``argv`` holds
+    ``--multiprocessing-distributed``; the environment is set here for the
+    call), and its trainer must have run in it."""
     import torch
 
     from dasac_tpu_torch.train import cli, loop
+    from dasac_tpu_torch.utils.sys_tools import find_free_port
 
     probe = dict(events=[], host_ms=[], wait_src=[], wait_tgt=[], val_ms={},
                  save_ms=[], val_wait=[], val_eval=[], val_panel=[],
@@ -1301,6 +1342,10 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
     reset_counts(ce, ce_triton)
     original = loop.Trainer
     loop.Trainer = measured_trainer(probe, check_resume)
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(find_free_port()),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0") if world else {}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     fresh_cudnn()
     t0 = time.perf_counter()
     try:
@@ -1308,7 +1353,15 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
                            else device)
     finally:
         loop.Trainer = original
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
     wall_s = time.perf_counter() - t0
+    need((trainer.group is not None, trainer.world) == (world, 1),
+         "%s: the trainer ran in a world of %d (group %s)" % (
+             stage, trainer.world, trainer.group))
     need(torch.backends.cudnn.benchmark == (device.type == "cuda"),
          "%s: the train CLI left cuDNN autotuning off" % stage)
     if device.type == "cuda":
@@ -1329,6 +1382,11 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
 
     logdir, snapdir = trainer.args.logdir, trainer.args.snapshot_dir
     events = _events(logdir)
+    for writer, tags in events.items():
+        for tag, recs in tags.items():
+            steps = [st for st, _ in recs]
+            need(len(steps) == len(set(steps)),
+                 "%s: %s/%s written twice an epoch" % (stage, writer, tag))
     losses = {t: v for t, v in events.get("train", {}).items()
               if t.startswith("train_epoch/")}
     loss_keys = (("train_epoch/src_loss_ce", "train_epoch/loss_ce")
@@ -1379,33 +1437,47 @@ def run_train_stage(ce, ce_triton, stage, argv, want_start, want_steps,
     return trainer, out
 
 
-def run_train(ce, ce_triton, device, card, bare_ms=None):
+TRAIN_BASE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_train")
+
+
+def run_train(ce, ce_triton, device, card, bare_ms=None, world=False):
     """Phase 10: the trainer CLI on a synthetic root of real frame sizes;
     ABN (2 epochs x 2 steps, one validation round), SAC from the ABN
     snapshot (epochs 2 and 3, 3 steps each, one validation round), and
     ``--resume auto`` of the SAC run (epoch 4).  Returns the CE launches of
-    each stage."""
+    each stage.  The root stays under ``TRAIN_BASE``; the run's snapshots
+    and logs go.  ``world`` (phase 16): the same stages on that root, each
+    a torchrun-style launch of one NCCL rank; the root goes after."""
     import shutil
 
     import torch
 
-    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "smoke_train")
+    base = TRAIN_BASE
     root = os.path.join(base, "root")
-    shutil.rmtree(base, ignore_errors=True)
+    out = os.path.join(base, "ddp" if world else "")
+    if not world:
+        shutil.rmtree(base, ignore_errors=True)
     bare_ms = bare_ms or {}
+    kw = dict(phase="ddp_cli" if world else "train", world=world)
+    ok = False
     try:
-        write_train_root(root, card)
-        common = ["--snapshot-dir", os.path.join(base, "snap"), "--logdir",
-                  os.path.join(base, "logs"), "--exp", "smoke"]
+        if not world:
+            write_train_root(root, card)
+        common = ["--snapshot-dir", os.path.join(out, "snap"), "--logdir",
+                  os.path.join(out, "logs"), "--exp", "smoke",
+                  *(["--multiprocessing-distributed"] if world else [])]
+        # one process on one card, however many cards the host has (a
+        # torchrun-style launch takes its world from the environment)
         sets = ["DATASET.ROOT", root, "TPU.CE_IMPL", "pallas",
-                "LOG.ITER_VAL", "1", "LOG.ITER_TARGET", "1"]
+                "LOG.ITER_VAL", "1", "LOG.ITER_TARGET", "1",
+                "TPU.MESH_DEVICES", "1"]
         stages = {}
         abn, stages["abn"] = run_train_stage(
             ce, ce_triton, "abn",
             ["--cfg", TRAIN_CFG["abn"], *common, "--run", "abn", "--set",
              *sets, "MODEL.BASELINE", "True", "TRAIN.NUM_EPOCHS", "1",
-             *TRAIN_SETS], 0, 4, device, card, bare_ms.get("abn"))
+             *TRAIN_SETS], 0, 4, device, card, bare_ms.get("abn"), **kw)
         abn_last = os.path.join(abn.args.snapshot_dir, "last.pth")
         del abn
         torch.cuda.empty_cache()
@@ -1413,7 +1485,7 @@ def run_train(ce, ce_triton, device, card, bare_ms=None):
             ce, ce_triton, "sac",
             ["--cfg", TRAIN_CFG["sac"], *common, "--run", "sac",
              "--resume", abn_last, "--set", *sets, "TRAIN.NUM_EPOCHS", "3",
-             *TRAIN_SETS], 2, 6, device, card, bare_ms.get("sac"))
+             *TRAIN_SETS], 2, 6, device, card, bare_ms.get("sac"), **kw)
         sac_last = os.path.join(sac.args.snapshot_dir, "last.pth")
         del sac
         torch.cuda.empty_cache()
@@ -1447,11 +1519,13 @@ def run_train(ce, ce_triton, device, card, bare_ms=None):
             ["--cfg", TRAIN_CFG["sac"], *common, "--run", "sac",
              "--resume", "auto", "--set", *sets, "TRAIN.NUM_EPOCHS", "4",
              *TRAIN_SETS], 4, 3, device, card, bare_ms.get("sac"),
-            check_resume)
+            check_resume, **kw)
         del resumed, saved
         torch.cuda.empty_cache()
+        ok = True
     finally:
-        shutil.rmtree(base, ignore_errors=True)
+        for sub in ("snap", "logs") if ok and not world else ("",):
+            shutil.rmtree(os.path.join(base, sub), ignore_errors=True)
     return stages
 
 
@@ -2127,7 +2201,7 @@ def run_dataset(ce, ce_triton, device, card, native_build_s=None):
                   os.path.join(base, "logs"), "--exp", "dataset"]
         sets = ["DATASET.ROOT", root, "TPU.CE_IMPL", "pallas",
                 "TPU.NATIVE_LOADER", "True", "TPU.PACKED_DIR", "auto",
-                "DATASET.VAL_CROP", "True"]
+                "DATASET.VAL_CROP", "True", "TPU.MESH_DEVICES", "1"]
         stages = {}
         abn, stages["abn"] = run_train_stage(
             ce, ce_triton, "dataset_abn",
@@ -2165,6 +2239,501 @@ def run_dataset(ce, ce_triton, device, card, native_build_s=None):
         ce_launches=o["ce_launches"]) for st, o in stages.items()}
     log("dataset: %s" % json.dumps(out))
     return stages
+
+
+# ---------------------------------------------------------------------------
+# phase 16: data-parallel training
+# ---------------------------------------------------------------------------
+
+DDP_RANKS = 2        # ranks of the gloo world on the one card
+DDP_BASE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_ddp")
+
+
+def _split(a, k, n):
+    b = a.shape[0] // n
+    return a[k * b:(k + 1) * b]
+
+
+def ddp_sac_shard(device, k, n):
+    """Shard ``k`` of ``n`` of the flagship SAC batch (source frames and
+    target groups split along axis 0 in rank order), augmented with a
+    generator of its own, as each rank draws its own augmentation:
+    ``(src_frames, src_lbls, views)``."""
+    import torch
+
+    from dasac_tpu_torch.aug import pipelines
+    from dasac_tpu_torch.train import steps
+
+    scfg = sac_step_config()
+    src_i, src_l, tgt_i, tgt_l = (_split(a, k, n) for a in sac_batch(device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 1 + k)
+    src = pipelines.augment_source_batch(
+        gen, src_i, src_l, crop_hw=scfg.crop_hw, scale_range=scfg.src_scale,
+        hflip=scfg.src_hflip, jitter=scfg.src_jitter, blur=scfg.src_blur,
+        mean=scfg.src_mean, std=scfg.src_std)
+    return (*src, steps.augment_target(scfg, gen, tgt_i, tgt_l))
+
+
+def ddp_abn_shard(device, k, n):
+    """Shard ``k`` of ``n`` of the flagship ABN batch, augmented as the ABN
+    step does with a generator of its own: ``(src_frames, src_lbls,
+    tgt_frames, tgt_lbls)``."""
+    import torch
+
+    from dasac_tpu_torch.train import steps
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1 + k)
+    return steps.augment_abn(abn_step_config(), gen,
+                             tuple(_split(a, k, n) for a in abn_batch(device)))
+
+
+# (b)'s steps: the flagship SAC and ABN steps, and the ABN step on a
+# shallow r101 (one block a stage, full width, f32, as the card-vs-CPU
+# checks run it) at the flagship ABN batch.  A live-BN step through the
+# full 104 BN layers is chaotic: one step's parameter update moves by
+# about half its norm when only the order of the batch's two halves
+# changes (the emulation against itself; ``run_ddp_gloo`` prints it), far
+# less at one block a stage in f32, so the full-depth ABN step is held to
+# the emulation on its forward and the shallow one on everything.
+DDP_KINDS = ("sac", "abn", "abn_shallow")
+
+
+def ddp_step(kind, group):
+    """(frames step, its inputs' builder, CE launches a step) of ``kind``."""
+    from dasac_tpu_torch.train import steps
+
+    if kind == "sac":
+        return (steps.make_sac_views_step(sac_step_config(), group=group),
+                ddp_sac_shard, {"nll_fwd": 2, "nll_bwd": 2})
+    return (steps.make_abn_frames_step(abn_step_config(), group=group),
+            ddp_abn_shard, {"nll_fwd": 2, "nll_bwd": 1})
+
+
+def ddp_state(kind, device, group=None):
+    import torch
+
+    return flagship_state(device, group=group, **(
+        dict(layers=(1, 1, 1, 1), dtype=torch.float32)
+        if kind == "abn_shallow" else {}))
+
+
+def state_snapshot(state):
+    """Every tensor of the state the steps change: the model's parameters
+    and buffers, the teacher and running_conf."""
+    out = {"model." + k: v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    out.update({"teacher." + k: v.clone() for k, v in
+                {**state.teacher_params, **state.teacher_stats}.items()})
+    out["running_conf"] = state.running_conf.clone()
+    return out
+
+
+def _max_abs_diff(a, b):
+    return max((x.double() - b[k].to(x.device).double()).abs().max().item()
+               for k, x in a.items())
+
+
+def run_ddp_one_rank(ce, ce_triton, device, card):
+    """(a) One flagship SAC and one ABN step in a NCCL world of one, so
+    every collective runs (SUM over one rank, divided by 1), then the same
+    state and inputs with no group, twice.  Returns the launches."""
+    import torch
+
+    from dasac_tpu_torch.core import dist
+    from dasac_tpu_torch.utils.sys_tools import find_free_port
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(find_free_port()),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    dist.init(dist.launch_from_env(env), device)
+    setup_s = time.perf_counter() - t0
+    # cuDNN's deterministic algorithms: the step's remaining run-to-run
+    # noise is that of its atomic adds (the bilinear upsampling's backward)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    out, launches = dict(phase="ddp_one_rank", card=card,
+                         backend=torch.distributed.get_backend(),
+                         setup_s=setup_s), {}
+    try:
+        for kind in ("sac", "abn"):
+            inputs = ddp_step(kind, None)[1](device, 0, 1)
+            runs = {}
+            for name, group in (("group", dist.group()), ("plain", None),
+                                ("plain_again", None)):
+                state = flagship_state(device, group=group)
+                step, _, per_step = ddp_step(kind, group)
+                reset_counts(ce, ce_triton)
+                calls0 = dict(dist.CALLS)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(state, *inputs)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got, paths, _ = read_counts(ce, ce_triton, per_step)
+                runs[name] = dict(
+                    metrics={k: v.detach().clone() for k, v in m.items()},
+                    state=state_snapshot(state), ms=ms,
+                    calls={k: dist.CALLS[k] - calls0[k] for k in calls0})
+                if name == "group":
+                    launches[kind] = got
+                del state, m
+                torch.cuda.empty_cache()
+            g, a, b = runs["group"], runs["plain"], runs["plain_again"]
+            need(all(torch.equal(g["metrics"][k], a["metrics"][k])
+                     for k in a["metrics"]),
+                 "ddp_one_rank %s: the losses differ with a group" % kind)
+            d_group = _max_abs_diff(g["state"], a["state"])
+            d_floor = _max_abs_diff(b["state"], a["state"])
+            need(d_group <= 2 * d_floor,
+                 "ddp_one_rank %s: state differs by %r with a group, by %r "
+                 "between two runs without" % (kind, d_group, d_floor))
+            need(g["calls"]["mean"] >= 2 and not a["calls"]["mean"],
+                 "ddp_one_rank %s: collectives %s / %s" % (
+                     kind, g["calls"], a["calls"]))
+            out[kind] = dict(
+                step_ms={n: r["ms"] for n, r in runs.items()},
+                max_abs_diff_group_vs_plain=d_group,
+                max_abs_diff_plain_vs_plain=d_floor,
+                collectives_a_step=g["calls"],
+                losses={k: float(v) for k, v in a["metrics"].items()
+                        if v.dim() == 0})
+            del runs, g, a, b, inputs
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy()
+    log("ddp_one_rank: %s" % json.dumps(out))
+    return launches
+
+
+def ddp_rank(rank, addr, card, t_spawn, world, device):
+    """(b) One rank of a gloo world whose ranks all share ``device`` (the
+    one card; CUDA tensors through gloo): its shard of one flagship SAC
+    step and one ABN step, from the same state on every rank.  Writes what
+    it measured, and rank 0 its state after each step, under
+    ``DDP_BASE``."""
+    import torch
+
+    from dasac_tpu_torch.core import dist
+    from dasac_tpu_torch.ops import ce, ce_triton
+
+    start_s = time.time() - t_spawn
+    # this script's settings (``main``), which a new process does not have:
+    # no TF32, and the emulation's cuDNN choices
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", device.index or 0)
+        torch.cuda.set_device(device)
+    t0 = time.perf_counter()
+    dist.init(dist.Launch(addr, world, rank, rank), device, backend="gloo")
+    out = dict(rank=rank, card=card, start_s=start_s,
+               setup_s=time.perf_counter() - t0)
+    g = dist.group()
+    try:
+        for kind in DDP_KINDS:
+            step, shard, per_step = ddp_step(kind, g)
+            state = ddp_state(kind, device, g)
+            inputs = shard(device, rank, world)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(ce, ce_triton)
+            # step 1 (cold) is the one held against the emulation; step 2
+            # is timed
+            m = step(state, *inputs)
+            equal = dist.assert_replicas_equal(
+                dist.state_tensors(state, device, group=g), device, g)
+            if rank == 0:
+                torch.save(dict(
+                    metrics={k: v.detach().cpu() for k, v in m.items()},
+                    state={k: v.cpu() for k, v in
+                           state_snapshot(state).items()}),
+                    os.path.join(DDP_BASE, "%s_rank0.pt" % kind))
+            calls0 = dict(dist.CALLS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, *inputs)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            calls = {k: dist.CALLS[k] - calls0[k] for k in calls0}
+            launches, paths, _ = read_counts(
+                ce, ce_triton, {k: 2 * v for k, v in per_step.items()})
+            peak = torch.cuda.max_memory_allocated()
+            # the gradient all-reduce alone, at the step's bytes
+            grads = [p.grad for p in state.model.parameters()]
+            ar_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.all_reduce_mean_(grads, g)
+                torch.cuda.synchronize()
+                ar_ms.append((time.perf_counter() - t0) * 1e3)
+            out[kind] = dict(
+                step_ms=step_ms, max_memory_allocated=peak,
+                grad_allreduce_bytes=sum(t.numel() * t.element_size()
+                                         for t in grads),
+                grad_allreduce_ms=ar_ms,
+                bn_collectives_a_step=calls["bn"] + calls["bn_grad"],
+                collectives_a_step=calls, ce_launches=launches,
+                ce_launches_by_path=paths, replica_tensors_equal=equal,
+                losses={k: float(v) for k, v in m.items() if v.dim() == 0})
+            del state, inputs, m, grads
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy()
+    log("ddp_rank: %s" % json.dumps(out))
+    with open(os.path.join(DDP_BASE, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+
+
+def emulate_sac(state, shards, scfg):
+    """The SAC step of ``len(shards)`` ranks in one process, by hand: per
+    shard the teacher forward and refine; the teacher probabilities' batch
+    averages averaged over the shards; per shard the pseudo-labels and the
+    two losses, each backward scaled by 1/n, so the gradients are the
+    shards' average; one SGD step; the metrics averaged."""
+    import torch
+    from torch.func import functional_call
+
+    from dasac_tpu_torch.sac import core, refine
+
+    n = len(shards)
+    model, opt = state.model, state.optimizer
+    rd = torch.bfloat16 if scfg.refine_dtype == "bfloat16" else None
+    rd_pl = torch.bfloat16 if scfg.refine_dtype == "bfloat16" else \
+        torch.float32
+    teacher = {**state.teacher_params, **state.teacher_stats}
+    student = {**state.student_params(), **state.student_stats()}
+    names = list(teacher)
+    with torch.no_grad():
+        slow_init, rc, diff = core.maybe_update_teacher(
+            [teacher[k] for k in names], [student[k].detach() for k in names],
+            state.slow_init, state.running_conf,
+            momentum=scfg.net_momentum, threshold_beta=scfg.threshold_beta,
+            do_update=(state.step % scfg.net_momentum_iter == 0
+                       or not state.slow_init))
+        refined, avgs = [], []
+        for _, _, views in shards:
+            t_logits, _ = functional_call(
+                model, teacher, (views.frames_clean,),
+                dict(train=False, update_stats=False))
+            r, diags = refine.refine(
+                t_logits, views.affine, views.affine_inv, views.padding,
+                group_size=scfg.group_size, pool=scfg.pool,
+                pool_on=scfg.pool_on, compute_dtype=rd, res=scfg.refine_res)
+            refined.append(r)
+            probs = diags["teacher_probs"]
+            avgs.append(probs.reshape(-1, probs.shape[-1]).float().mean(0))
+        # update_running_conf over one row holding the shards' average
+        rc = core.update_running_conf(rc, (sum(avgs) / n)[None],
+                                      scfg.stat_momentum, scfg.threshold_beta)
+    opt.zero_grad(set_to_none=True)
+    rows = []
+    for (src_frames, src_lbls, views), r in zip(shards, refined):
+        with torch.no_grad():
+            pseudo, conf, _ = core.pseudo_labels(
+                r, views.padding, rc, upper=scfg.run_conf_upper,
+                lower=scfg.run_conf_lower, threshold_beta=scfg.threshold_beta,
+                discount=scfg.conf_discount, compute_dtype=rd_pl)
+        _, up = model(src_frames, train=True, update_stats=False)
+        ce_src = core.cross_entropy_mean(up, src_lbls, impl=scfg.ce_impl)
+        (ce_src / n).backward()
+        del up
+        _, up = model(views.frames_aug, train=True, update_stats=False)
+        self_ce, per_class = core.focal_ce(
+            up, pseudo, conf, rc, p=scfg.focal_p, use_conf=scfg.use_conf_loss,
+            impl=scfg.ce_impl)
+        (scfg.lr_target * self_ce / n).backward()
+        del up
+        rows.append(dict(src_loss_ce=ce_src.detach(),
+                         self_ce=self_ce.detach(),
+                         pseudo_cover=(pseudo != core.IGNORE).float().mean(),
+                         self_ce_per_class=per_class))
+    opt.step()
+    state.running_conf, state.slow_init = rc, slow_init
+    state.step += 1
+    metrics = {k: sum(r[k] for r in rows) / n for k in rows[0]}
+    metrics["teacher_diff"] = diff
+    return metrics
+
+
+def emulate_abn(state, shards, scfg):
+    """The ABN step of ``len(shards)`` ranks in one process: one forward of
+    the un-split batch (its live BN statistics are the cross-replica
+    ones), the loss the mean of the shards' CE means, one SGD step, then
+    the un-split target pass."""
+    import torch
+
+    from dasac_tpu_torch.sac import core
+
+    n = len(shards)
+    model, opt = state.model, state.optimizer
+
+    def mean_of_shard_means(up, labels):
+        b = up.shape[0] // n
+        return sum(core.cross_entropy_mean(up[k * b:(k + 1) * b], lbl,
+                                           impl=scfg.ce_impl)
+                   for k, lbl in enumerate(labels)) / n
+
+    opt.zero_grad(set_to_none=True)
+    _, up = model(torch.cat([s[0] for s in shards]), train=True,
+                  update_stats=True)
+    ce_src = mean_of_shard_means(up, [s[1] for s in shards])
+    ce_src.backward()
+    del up
+    opt.step()
+    with torch.no_grad():
+        _, up = model(torch.cat([s[2] for s in shards]), train=True,
+                      update_stats=True)
+        ce_tgt = mean_of_shard_means(up, [s[3] for s in shards])
+    state.step += 1
+    return {"src_loss_ce": ce_src.detach(), "loss_ce": ce_tgt}
+
+
+def emulate_ddp(kind, device, shards):
+    """The emulated step of ``kind`` from the ranks' state on ``shards``:
+    {"before": parameters, "metrics", "state": ``state_snapshot``}."""
+    state = ddp_state(kind, device)
+    before = {k: p.detach().clone() for k, p in
+              state.model.named_parameters()}
+    if kind == "sac":
+        m = emulate_sac(state, shards, sac_step_config())
+    else:
+        m = emulate_abn(state, shards, abn_step_config())
+    return dict(before=before, metrics=m, state=state_snapshot(state))
+
+
+def _update_rel_err(got, ref, device):
+    """|| update(got) - update(ref) || / || update(ref) || over every
+    parameter, an update being the parameters after less before."""
+    num = den = 0.0
+    for k, b in ref["before"].items():
+        d_ref = (ref["state"]["model." + k] - b).double()
+        d_got = (got["state"]["model." + k].to(device) - b).double()
+        num += float(((d_got - d_ref) ** 2).sum())
+        den += float((d_ref ** 2).sum())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def compare_ddp(got, ref, device):
+    """Rank 0's step against the emulation's: what lies outside rtol 1e-3
+    / atol 1e-5 (name, max abs diff), the update's relative error, the
+    largest difference and both sides' losses."""
+    import torch
+
+    need(set(got["state"]) == set(ref["state"]), "state keys")
+    pairs = ([(k, got["metrics"][k].float(), v.float().cpu())
+              for k, v in ref["metrics"].items()]
+             + [(k, got["state"][k], v.cpu())
+                for k, v in ref["state"].items()])
+    off = [(k, _max_abs_diff({k: x}, {k: y})) for k, x, y in pairs
+           if not torch.allclose(x.to(y.dtype), y, rtol=1e-3, atol=1e-5)]
+    return dict(
+        update_rel_err=_update_rel_err(got, ref, device),
+        outside_tolerance=off[:20], n_outside_tolerance=len(off),
+        max_abs_diff=_max_abs_diff(
+            {k: v for k, v in got["state"].items()
+             if v.is_floating_point()}, ref["state"]),
+        losses_ranks={k: float(v) for k, v in got["metrics"].items()
+                      if v.dim() == 0},
+        losses_emulated={k: float(v) for k, v in ref["metrics"].items()
+                         if v.dim() == 0})
+
+
+def run_ddp_gloo(device, card):
+    """(b) ``DDP_RANKS`` spawned ranks on the one card over gloo
+    (``ddp_rank``), then each step emulated in this process from the same
+    state and shards (``emulate_sac``, ``emulate_abn``).  SAC and the
+    shallow ABN step: rank 0's losses, parameters, BN buffers, teacher and
+    running_conf within rtol 1e-3 / atol 1e-5 of the emulation's, and the
+    parameter update (after less before) within a relative norm error of
+    5e-2 over the whole model.  The full-depth ABN step: its source loss
+    (the forward) within rtol 1e-3; the rest is printed beside the
+    emulation's own difference when the batch's halves are swapped (see
+    ``DDP_KINDS``).  Returns each rank's measurements."""
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.utils.sys_tools import find_free_port
+
+    shutil.rmtree(DDP_BASE, ignore_errors=True)
+    os.makedirs(DDP_BASE)
+    torch.cuda.empty_cache()
+    addr = "127.0.0.1:%d" % find_free_port()
+    # the ranks' cuDNN settings, for the emulation
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.time()
+        torch.multiprocessing.spawn(
+            ddp_rank, args=(addr, card, t0, DDP_RANKS, str(device)),
+            nprocs=DDP_RANKS, join=True)
+        spawn_s = time.time() - t0
+        ranks = []
+        for r in range(DDP_RANKS):
+            with open(os.path.join(DDP_BASE, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        out = dict(phase="ddp_gloo", card=card, ranks=DDP_RANKS,
+                   backend="gloo", spawn_and_steps_s=spawn_s)
+        for kind in DDP_KINDS:
+            _, shard, _ = ddp_step(kind, None)
+            shards = [shard(device, k, DDP_RANKS) for k in range(DDP_RANKS)]
+            got = torch.load(os.path.join(DDP_BASE, "%s_rank0.pt" % kind),
+                             weights_only=True)
+            ref = emulate_ddp(kind, device, shards)
+            o = out[kind] = compare_ddp(got, ref, device)
+            if kind == "abn":
+                # the noise floor: the emulation with the halves swapped
+                floor = emulate_ddp(kind, device, shards[::-1])
+                o["update_rel_err_swapped_emulation"] = _update_rel_err(
+                    floor, ref, device)
+                o["loss_ce_swapped_emulation"] = float(
+                    floor["metrics"]["loss_ce"])
+                del floor
+            log("ddp_gloo %s: %s" % (kind, json.dumps(o)))
+            if kind == "abn":
+                need(not [k for k, _ in o["outside_tolerance"]
+                          if k == "src_loss_ce"],
+                     "abn: the forward differs: %s" % o["outside_tolerance"])
+            else:
+                need(not o["outside_tolerance"],
+                     "%s: rank 0 and the emulation differ beyond rtol 1e-3 "
+                     "/ atol 1e-5: %s" % (kind, o["outside_tolerance"][:5]))
+                need(o["update_rel_err"] < 5e-2, "%s: update rel err %.4f"
+                     % (kind, o["update_rel_err"]))
+            del shards, got, ref
+            torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
+        log("ddp_gloo: %s" % json.dumps(out))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(DDP_BASE, ignore_errors=True)
+    return ranks
+
+
+def run_ddp(ce, ce_triton, device, card):
+    """Phase 16: (a) the NCCL world of one: bare steps (``run_ddp_one_rank``)
+    and phase 10's CLI stages on its root (``run_train(world=True)``); (b)
+    two gloo ranks on the card (``run_ddp_gloo``).  Returns the CE launches
+    by part."""
+    import shutil
+
+    try:
+        one = run_ddp_one_rank(ce, ce_triton, device, card)
+        cli = run_train(ce, ce_triton, device, card, world=True)
+        ranks = run_ddp_gloo(device, card)
+    finally:
+        shutil.rmtree(TRAIN_BASE, ignore_errors=True)
+    return dict(nccl_steps=one,
+                nccl_cli={st: o["ce_launches"] for st, o in cli.items()},
+                gloo_ranks=[{kind: r[kind]["ce_launches"]
+                             for kind in DDP_KINDS} for r in ranks])
 
 
 # ---------------------------------------------------------------------------
@@ -2261,6 +2830,8 @@ def main(argv=()):
     lap("bench_infer")
     dataset = run_dataset(ce, ce_triton, device, card, native_build_s)
     lap("dataset")
+    ddp = run_ddp(ce, ce_triton, device, card)
+    lap("ddp")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -2300,6 +2871,16 @@ def main(argv=()):
                         for st, o in dataset.items()}
             row.update(launches_dataset=sum(by_stage.values()),
                        launches_dataset_by_stage=by_stage)
+            # data parallel (phase 16): NCCL world of one, its CLI stages,
+            # each gloo rank
+            row["launches_ddp"] = dict(
+                nccl_steps={kind: (got[k] if route == "cuda" else 0)
+                            for kind, got in ddp["nccl_steps"].items()},
+                nccl_cli={st: (got[k] if route == "cuda" else 0)
+                          for st, got in ddp["nccl_cli"].items()},
+                gloo_ranks=[{kind: (got[k] if route == "cuda" else 0)
+                             for kind, got in r.items()}
+                            for r in ddp["gloo_ranks"]])
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

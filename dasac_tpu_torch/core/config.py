@@ -6,14 +6,17 @@ this repo's ``configs/*.yaml`` load unmodified.  The YAML is read by
 :mod:`dasac_tpu_torch.core.yaml_subset`, which types values exactly as
 ``yaml.safe_load`` does.
 
-The ``TPU`` section is kept whole so every config loads, but on one GPU:
+The ``TPU`` section is kept whole so every config loads, but:
 
   * ``TPU.COMPILE_CACHE`` (XLA's persistent compile cache),
     ``TPU.RESIZE_METHOD`` (XLA's resize formulation) and ``TPU.CKPT_LOSS``
     (XLA loss rematerialization) are accepted and not read;
-  * ``TPU.MESH_DEVICES`` > 1, ``TPU.PARTITION`` "gspmd", ``TPU.MESH_SP`` > 1
+  * ``TPU.MESH_DEVICES`` is the number of data-parallel processes, one per
+    device, that the train CLI spawns (0 = as many visible GPUs as divide
+    both batch dimensions); ``TPU.PARTITION`` "gspmd", ``TPU.MESH_SP`` > 1
     and ``TPU.REMAT`` other than "none" make the trainer raise
-    ``NotImplementedError`` (multi-GPU training is still to be ported);
+    ``NotImplementedError`` (height sharding and remat are still to be
+    ported);
   * ``TPU.CE_IMPL`` "pallas" selects the CUDA CE kernels, "xla" the plain
     log-softmax; ``TPU.COMPUTE_DTYPE``, ``REFINE_DTYPE``, ``REFINE_RES``,
     ``LOSS_DTYPE``, ``LOADER_THREADS``, ``PREFETCH``, ``PACKED_DIR`` and

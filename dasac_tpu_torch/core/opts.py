@@ -2,15 +2,21 @@
 flag surface (opts.py:15-109), so launch scripts carry over, with the same
 defaults and the same ``logdir`` / ``snapshot_dir`` joins.
 
-The port trains on one GPU in one process: ``--multiprocessing-distributed``
-or a ``--world-size`` above 1 raise ``NotImplementedError`` (multi-GPU
-training is ROADMAP Queue 1 item 10); ``--dist-url``, ``--dist-backend`` and
-``--rank`` are accepted and not read.  ``--profile`` writes a
+Data-parallel launches (:func:`launch_plan`): ``--multiprocessing-distributed``
+joins a world that the environment describes (torchrun, multi-node
+launches, the reference's recipes; the counterpart of ``train.py``'s pod
+flag), and ``--world-size`` N > 1 joins a world of N processes as rank
+``--rank`` at ``--dist-url`` (the reference's meaning).  Without either,
+``train.cli`` spawns one process per device when ``TPU.MESH_DEVICES`` asks
+for more than one.  ``--dist-backend`` is accepted and not read: the port
+takes NCCL on the GPU and gloo on the CPU.  ``--profile`` writes a
 ``torch.profiler`` trace into the logdir.
 """
 
 import argparse
 import os
+
+from dasac_tpu_torch.core import dist
 
 
 def add_global_arguments(parser):
@@ -34,8 +40,7 @@ def add_global_arguments(parser):
                         help="Specifies dataloader to use.")
     parser.add_argument("--infer-list", default="data/val_cityscapes.txt",
                         type=str)
-    # distributed flags: accepted for launch-script compatibility (the
-    # defaults are dasac_tpu's); more than one process raises
+    # distributed flags (the defaults are dasac_tpu's): see launch_plan
     parser.add_argument("--world-size", default=-1, type=int)
     parser.add_argument("--dist-url", default="", type=str)
     parser.add_argument("--dist-backend", default="xla", type=str)
@@ -54,10 +59,6 @@ def get_arguments(args_in):
     parser = argparse.ArgumentParser(description="dasac_tpu_torch")
     add_global_arguments(parser)
     args = parser.parse_args(args_in)
-    if args.multiprocessing_distributed or args.world_size > 1:
-        raise NotImplementedError(
-            "multi-process / multi-GPU training is not ported yet (ROADMAP "
-            "Queue 1 item 10); run one process on one GPU")
 
     if args.dataloader is None:
         args.dataloader = "default"
@@ -68,3 +69,29 @@ def get_arguments(args_in):
                                      args.exp, args.run or "run0")
     os.makedirs(args.snapshot_dir, exist_ok=True)
     return args
+
+
+def launch_plan(args, env):
+    """The world this process joins (a ``dist.Launch``), or ``None``:
+
+      * ``--multiprocessing-distributed``: the one ``env`` describes
+        (``dist.launch_from_env``; ``LOCAL_RANK`` picks the device);
+      * ``--world-size`` N > 1: N processes, this one ``--rank``, meeting
+        at ``--dist-url`` (``tcp://host:port``; empty or ``env://`` reads
+        ``MASTER_ADDR``/``MASTER_PORT``).
+    """
+    if args.multiprocessing_distributed:
+        return dist.launch_from_env(env)
+    if args.world_size <= 1:
+        return None
+    url = args.dist_url
+    if url in ("", "env://"):
+        addr = "{}:{}".format(env.get("MASTER_ADDR", "localhost"),
+                              env.get("MASTER_PORT", dist.DEFAULT_PORT))
+    elif url.startswith("tcp://"):
+        addr = url[len("tcp://"):]
+    else:
+        raise ValueError("--dist-url must be tcp://host:port or env://, "
+                         "got %r" % url)
+    return dist.Launch(addr, args.world_size, args.rank,
+                       int(env.get("LOCAL_RANK", 0)))

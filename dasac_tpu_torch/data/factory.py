@@ -9,7 +9,8 @@ Builds host-side prefetch loaders for:
 
 Split sizes come from the first image's PNG header.  A split is served from
 a memmap pack (``data/packed.py``) when one matches its name, size, decode
-mode and current file list; the trainer passes ``num_replicas=1, rank=0``.
+mode and current file list.  Data parallel: the trainer passes its world
+size and rank, and every rank decodes only its slice of each global batch.
 """
 
 import os
@@ -146,15 +147,12 @@ class Loaders:
                     self.source_batch_size(), self.target_batch_size()))
         return steps
 
-    def train_loaders(self, epoch, replicated_eval=False):
+    def train_loaders(self, epoch):
         cfg = self.cfg
         steps = self.steps_per_epoch()
-        # multi-host: each process loads 1/num_replicas of every batch, in
-        # rank order, so the assembled global batch matches single-host;
-        # with replicated_eval every host loads full batches (for unsharded
-        # evaluation steps)
-        reps = 1 if replicated_eval else self.num_replicas
-        rank = 0 if replicated_eval else self.rank
+        # each rank loads 1/num_replicas of every batch, in rank order, so
+        # the ranks' slices together are the single-process global batch
+        reps, rank = self.num_replicas, self.rank
         assert self.source_batch_size() % reps == 0 and \
             self.target_batch_size() % reps == 0, (
                 "global batch sizes must divide the process count")
@@ -190,11 +188,15 @@ class Loaders:
             threads=cfg.TPU.LOADER_THREADS, prefetch=cfg.TPU.PREFETCH)
         return src_loader, tgt_loader
 
-    def val_loader(self, split, batch_size=None, max_batches=None):
-        """Whole batches in one process: the trainer evaluates on one
-        device (multi-process validation is ROADMAP Queue 1 item 10)."""
+    def val_loader(self, split, batch_size=None, max_batches=None,
+                   distributed=False):
+        """``distributed=True`` shards the split's decode across the ranks
+        (each rank loads its ``batch_size`` slice of every global batch);
+        the caller must then sum the confusions over the ranks."""
         ds = self.val[split]
         bs = batch_size or max(1, self.cfg.TRAIN.BATCH_SIZE // 2)
+        reps = self.num_replicas if distributed else 1
+        rank = self.rank if distributed else 0
         return host_loader.padded_plain_loader(
             ds, bs, self.cfg.TPU.LOADER_THREADS, self.cfg.TPU.PREFETCH,
-            max_batches=max_batches)
+            max_batches=max_batches, num_replicas=reps, rank=rank)

@@ -22,10 +22,12 @@ ARCHS = {
 
 
 def build_model(arch, num_classes, dtype=torch.float32, remat="none",
-                device=None, generator=None, **kwargs):
+                device=None, generator=None, group=None, **kwargs):
     """Build ``arch`` with weights drawn from ``generator`` (a CPU
     ``torch.Generator``; default seed 0) and move it to ``device``
-    (default CUDA; raises when there is none).  ``kwargs`` go to the model
+    (default CUDA; raises when there is none).  ``group`` (a process
+    group) makes every BN's live statistics cross-replica, as
+    ``dasac_tpu``'s ``axis_name`` does.  ``kwargs`` go to the model
     (``layers`` for the ResNet, ``drop_rate`` for FCN8s, ``width`` for
     tiny)."""
     key = arch.lower()
@@ -36,7 +38,7 @@ def build_model(arch, num_classes, dtype=torch.float32, remat="none",
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = ARCHS[key](num_classes=num_classes, dtype=dtype, remat=remat,
-                       **kwargs)
+                       group=group, **kwargs)
     for m in model.modules():
         if isinstance(m, Conv2d):
             m.reset_parameters(generator=generator)

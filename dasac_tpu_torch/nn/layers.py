@@ -1,5 +1,6 @@
-"""Core layers: a convolution with explicit compute dtype and single-device
-BatchNorm (counterpart of ``dasac_tpu/nn/layers.py``).
+"""Core layers: a convolution with explicit compute dtype and BatchNorm with
+optional cross-replica statistics (counterpart of
+``dasac_tpu/nn/layers.py``).
 
 Modules take NCHW-shaped tensors; the models permute their NHWC input to an
 NCHW-shaped view in ``channels_last`` memory, which the convolutions run on
@@ -10,8 +11,9 @@ autocast).
 BN modes:
   * frozen (SAC student/teacher): normalize with the running statistics;
   * batch stats (ABN baseline): normalize with the batch statistics and
-    update the running ones with torch's conventions.
-Cross-replica statistics are for the multi-GPU port.
+    update the running ones with torch's conventions; with a process
+    group, the statistics are those of the global batch (one collective a
+    layer in the forward and one in the backward).
 """
 
 import math
@@ -19,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dasac_tpu_torch.core import dist
 
 
 class Conv2d(nn.Module):
@@ -68,19 +72,26 @@ class Conv2d(nn.Module):
 
 
 class SyncBatchNorm(nn.Module):
-    """BatchNorm2d, single device.
+    """BatchNorm2d with optional cross-replica statistics.
 
     Statistics and affine parameters are float32 regardless of compute
     dtype.  Running-stat update matches torch: ``running <- (1-m)*running +
     m*batch`` with momentum m=0.1 and the unbiased variance.  The state-dict
     keys are torch's (``weight``, ``bias``, ``running_mean``,
     ``running_var``, ``num_batches_tracked``).
+
+    With a process ``group`` the live statistics are averaged over its
+    ranks as ``dasac_tpu``'s ``lax.pmean`` over the mesh axis does: one
+    all-reduce of ``[mean, mean_sq]`` (2C floats), and the pixel count of
+    the unbiased variance times the world size.  Frozen BN never
+    communicates.
     """
 
     def __init__(self, features, momentum=0.1, eps=1e-5,
-                 dtype=torch.float32):
+                 dtype=torch.float32, group=None):
         super().__init__()
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.group = group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -95,8 +106,15 @@ class SyncBatchNorm(nn.Module):
             xf = x.float()
             dims = (0, 2, 3)
             mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            mean_sq = (xf * xf).mean(dim=dims)
             count = x.numel() // x.shape[1]
+            if self.group is not None:
+                world = self.group.size()
+                stats = dist.AllReduceSum.apply(
+                    torch.cat([mean, mean_sq]), self.group) / world
+                mean, mean_sq = stats.split(mean.shape[0])
+                count *= world
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 unbiased = var * (count / max(count - 1.0, 1.0))
                 self.running_mean.mul_(1.0 - self.momentum).add_(

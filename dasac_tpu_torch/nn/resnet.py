@@ -16,7 +16,8 @@ The model takes NHWC input and permutes it to an NCHW-shaped view in
 and the outputs come back NHWC.  Module names give the reference
 ``state_dict`` keys (``model.conv1``, ``model.layer1.0.conv1``,
 ``model.layer5.conv2d_list.0``, ...), so a reference checkpoint loads with
-``strict=True``.
+``strict=True``.  ``group`` (a process group, or ``None``) goes to every
+BN for cross-replica statistics.
 """
 
 import torch
@@ -33,20 +34,21 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_planes, planes, stride=1, dilation=1,
-                 has_downsample=False, dtype=torch.float32):
+                 has_downsample=False, dtype=torch.float32, group=None):
         super().__init__()
         kw = dict(dtype=dtype, init_std=_INIT_STD)
+        bn = dict(dtype=dtype, group=group)
         out = planes * self.expansion
         self.conv1 = Conv2d(in_planes, planes, 1, stride=stride, **kw)
-        self.bn1 = SyncBatchNorm(planes, dtype=dtype)
+        self.bn1 = SyncBatchNorm(planes, **bn)
         self.conv2 = Conv2d(planes, planes, 3, padding=dilation,
                             dilation=dilation, **kw)
-        self.bn2 = SyncBatchNorm(planes, dtype=dtype)
+        self.bn2 = SyncBatchNorm(planes, **bn)
         self.conv3 = Conv2d(planes, out, 1, **kw)
-        self.bn3 = SyncBatchNorm(out, dtype=dtype)
+        self.bn3 = SyncBatchNorm(out, **bn)
         self.downsample = nn.ModuleList([
             Conv2d(in_planes, out, 1, stride=stride, **kw),
-            SyncBatchNorm(out, dtype=dtype),
+            SyncBatchNorm(out, **bn),
         ]) if has_downsample else None
 
     def forward(self, x, update_stats):
@@ -89,11 +91,12 @@ class ResNet101Backbone(nn.Module):
     # (planes, stride, dilation) per stage
     SPECS = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))
 
-    def __init__(self, dtype=torch.float32, layers=(3, 4, 23, 3)):
+    def __init__(self, dtype=torch.float32, layers=(3, 4, 23, 3),
+                 group=None):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, dtype=dtype,
                             init_std=_INIT_STD)
-        self.bn1 = SyncBatchNorm(64, dtype=dtype)
+        self.bn1 = SyncBatchNorm(64, dtype=dtype, group=group)
         in_planes = 64
         for li, ((planes, stride, dilation), n_blocks) in enumerate(
                 zip(self.SPECS, layers), start=1):
@@ -106,7 +109,8 @@ class ResNet101Backbone(nn.Module):
                                       or dilation in (2, 4))
                 blocks.append(Bottleneck(
                     in_planes, planes, stride=stride if first else 1,
-                    dilation=dilation, has_downsample=has_down, dtype=dtype))
+                    dilation=dilation, has_downsample=has_down, dtype=dtype,
+                    group=group))
                 in_planes = planes * 4
             self.add_module("layer{}".format(li), nn.ModuleList(blocks))
         self.out_channels = in_planes
@@ -126,12 +130,13 @@ class DeepLabV2ResNet101(nn.Module):
     (the reference forward, ``deeplabv2.py:213-227``, without the loss)."""
 
     def __init__(self, num_classes=19, dtype=torch.float32, remat="none",
-                 layers=(3, 4, 23, 3)):
+                 layers=(3, 4, 23, 3), group=None):
         super().__init__()
         if remat not in ("none", False):
             raise ValueError("the port supports remat='none' only")
         self.dtype = dtype
-        self.model = ResNet101Backbone(dtype=dtype, layers=layers)
+        self.model = ResNet101Backbone(dtype=dtype, layers=layers,
+                                       group=group)
         # the reference keeps the classifier inside its trunk container as
         # ``layer5``; the trunk's forward does not run it
         self.model.layer5 = ASPP(self.model.out_channels, num_classes,

@@ -17,15 +17,15 @@ class TinySeg(nn.Module):
     """Takes NHWC input; returns ``(logits, logits_up)`` NHWC f32."""
 
     def __init__(self, num_classes=5, width=8, dtype=torch.float32,
-                 remat="none"):
+                 remat="none", group=None):
         super().__init__()
         if remat not in ("none", False):
             raise ValueError("the port supports remat='none' only")
         self.conv_a = Conv2d(3, width, 3, stride=2, padding="same", bias=True)
-        self.bn_a = SyncBatchNorm(width)
+        self.bn_a = SyncBatchNorm(width, group=group)
         self.conv_b = Conv2d(width, width, 3, stride=2, padding="same",
                              bias=True)
-        self.bn_b = SyncBatchNorm(width)
+        self.bn_b = SyncBatchNorm(width, group=group)
         self.aspp = Conv2d(width, num_classes, 1, bias=True)
 
     def forward(self, x, train=False, update_stats=False, generator=None,

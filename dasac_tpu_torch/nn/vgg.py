@@ -10,7 +10,7 @@
     channel dropout, and skip fusions through ``score_pool4`` and
     ``score_pool3``; each fusion resizes (align corners) to the skip's grid.
 
-Like the ResNet, a model takes NHWC input, runs on its NCHW-shaped
+Like the ResNet, a model passes ``group`` to every BN, takes NHWC input, runs on its NCHW-shaped
 ``channels_last`` view and returns ``(logits, logits_up)`` NHWC f32.
 Module names are the reference's torch keys and are registered in the
 reference's order, so a reference ``state_dict`` loads with
@@ -68,7 +68,7 @@ class VGGStage(nn.Module):
     dilation 2."""
 
     def __init__(self, start, stop, skip_pools=(), dilate=(),
-                 dtype=torch.float32, rename=lambda i: i):
+                 dtype=torch.float32, rename=lambda i: i, group=None):
         super().__init__()
         self.plan = []
         in_ch = 3 if start == 0 else next(
@@ -84,8 +84,8 @@ class VGGStage(nn.Module):
                     dtype=dtype))
                 in_ch = ch
             elif kind == "bn":
-                self.add_module(str(rename(idx)), SyncBatchNorm(ch,
-                                                                dtype=dtype))
+                self.add_module(str(rename(idx)), SyncBatchNorm(
+                    ch, dtype=dtype, group=group))
             self.plan.append((kind, str(rename(idx))))
         self.out_channels = in_ch
 
@@ -116,7 +116,8 @@ def _check_remat(remat):
 class DeepLabV2VGG16(nn.Module):
     """DeepLabv2 / VGG-16-BN, output stride 8."""
 
-    def __init__(self, num_classes=19, dtype=torch.float32, remat="none"):
+    def __init__(self, num_classes=19, dtype=torch.float32, remat="none",
+                 group=None):
         super().__init__()
         _check_remat(remat)
         self.dtype = dtype
@@ -124,7 +125,8 @@ class DeepLabV2VGG16(nn.Module):
         # everything after 33 one down
         self.features = VGGStage(0, 44, skip_pools=(33, 43),
                                  dilate=(34, 37, 40), dtype=dtype,
-                                 rename=lambda i: i - 1 if i > 33 else i)
+                                 rename=lambda i: i - 1 if i > 33 else i,
+                                 group=group)
         kw = dict(padding=4, dilation=4, bias=True, dtype=dtype)
         self.features.add_module("42", Conv2d(512, 1024, 3, **kw))    # fc6
         self.features.add_module("44", Conv2d(1024, 1024, 3, **kw))   # fc7
@@ -146,22 +148,23 @@ class VGG16FCN8s(nn.Module):
     two channel dropouts draw their masks from ``generator``."""
 
     def __init__(self, num_classes=19, dtype=torch.float32, remat="none",
-                 drop_rate=0.1):
+                 drop_rate=0.1, group=None):
         super().__init__()
         _check_remat(remat)
         self.dtype = dtype
         self.drop_rate = drop_rate
-        self.block1 = VGGStage(0, 24, dtype=dtype)     # to pool3, 1/8
-        self.block2 = VGGStage(24, 34, dtype=dtype)    # to pool4, 1/16
-        self.block3 = VGGStage(34, 44, dtype=dtype)    # to pool5, 1/32
+        bn = dict(dtype=dtype, group=group)
+        self.block1 = VGGStage(0, 24, **bn)     # to pool3, 1/8
+        self.block2 = VGGStage(24, 34, **bn)    # to pool4, 1/16
+        self.block3 = VGGStage(34, 44, **bn)    # to pool5, 1/32
         kw = dict(bias=True, dtype=dtype)
         # the reference's Sequential: 0 conv 7x7, 1 bn, 2 relu, 3 dropout,
         # 4 conv 1x1, 5 bn, 6 relu, 7 dropout, 8 conv 1x1 (the score)
         self.vgg_head = nn.ModuleDict({
             "0": Conv2d(512, 4096, 7, padding=3, **kw),
-            "1": SyncBatchNorm(4096, dtype=dtype),
+            "1": SyncBatchNorm(4096, **bn),
             "4": Conv2d(4096, 4096, 1, **kw),
-            "5": SyncBatchNorm(4096, dtype=dtype),
+            "5": SyncBatchNorm(4096, **bn),
             "8": Conv2d(4096, num_classes, 1, **kw),
         })
         self.score_pool4 = Conv2d(512, num_classes, 1, init_std=_INIT_STD,

@@ -9,6 +9,7 @@ which the train state keeps as Python values (no device sync per step).
 
 import torch
 
+from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.ops.ce import nll_fused
 
 IGNORE = 255
@@ -19,14 +20,17 @@ IGNORE = 255
 # ---------------------------------------------------------------------------
 
 def update_running_conf(running_conf, probs, stat_momentum, threshold_beta,
-                        tolerance=1e-8):
+                        tolerance=1e-8, group=None):
     """EMA of the mean class probability.
 
     Classes still at their init value (``threshold_beta``) adopt the batch
-    average directly; others get ``m*old + (1-m)*avg``.
+    average directly; others get ``m*old + (1-m)*avg``.  With a process
+    ``group`` the batch average is averaged over its ranks first, so every
+    replica tracks the global prior.
     """
     c = probs.shape[-1]
     probs_avg = probs.reshape(-1, c).float().mean(dim=0)
+    dist.all_reduce_mean_([probs_avg], group)
     is_new = (probs_avg > tolerance) & (running_conf == threshold_beta)
     ema = stat_momentum * running_conf + (1.0 - stat_momentum) * probs_avg
     return torch.where(is_new, probs_avg, ema)

@@ -1,6 +1,5 @@
-"""Trainer: epoch loop, validation cadence, best-3 and rolling snapshots on
-one GPU (counterpart of ``dasac_tpu/train/loop.py``; reference
-train.py:48-533).
+"""Trainer: epoch loop, validation cadence, best-3 and rolling snapshots
+(counterpart of ``dasac_tpu/train/loop.py``; reference train.py:48-533).
 
 The host feeds uint8 batches from the prefetch loaders and reads each
 step's metrics back only after it has launched the next step: on CUDA,
@@ -10,11 +9,16 @@ seeded from ``--seed``, draws every train step's augmentation; target
 validation seeds a generator per (epoch, batch) and the visual panel one
 fixed generator, so their draws are the same in every run.
 
-One process, one device.  ``dasac_tpu``'s mesh and pod branches
-(loop.py:36-133) are multi-GPU work (ROADMAP Queue 1 items 1 and 10):
-``TPU.MESH_DEVICES`` > 1, ``TPU.PARTITION`` "gspmd", ``TPU.MESH_SP`` > 1,
-``TPU.REMAT`` other than "none", and a ``torch.distributed`` world of more
-than one process raise ``NotImplementedError``.
+One process drives one device.  Inside a ``torch.distributed`` world (the
+counterpart of ``dasac_tpu``'s shard_map branch, loop.py:36-133) each rank
+decodes its slice of every global batch and runs its share of each step
+(``train/steps.py``); every rank's generators add the rank to their salt,
+so each draws its own augmentation (``dasac_tpu``'s ``_fold_axis``).  The
+state is broadcast from rank 0 after start-up and resume; rank 0 alone
+writes events, panels and snapshots; validation is sharded over the ranks,
+with the confusions summed.  Height sharding (``TPU.PARTITION`` "gspmd",
+``TPU.MESH_SP`` > 1; ROADMAP Queue 1 item 10) and remat (``TPU.REMAT``
+other than "none"; items 1 and 16) raise ``NotImplementedError``.
 """
 
 import os
@@ -23,17 +27,20 @@ import numpy as np
 import torch
 
 from dasac_tpu_torch.aug import photometric as P
+from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.core.device import resolve_device
 from dasac_tpu_torch.core.state import create_train_state
+from dasac_tpu_torch.data import native_build
 from dasac_tpu_torch.data.factory import Loaders
 from dasac_tpu_torch.nn import convert
 from dasac_tpu_torch.nn.factory import build_model
+from dasac_tpu_torch.ops import ce, cuda_build
 from dasac_tpu_torch.train import optim as optim_lib
 from dasac_tpu_torch.train import steps as steps_lib
 from dasac_tpu_torch.train.checkpoints import BestTracker, Checkpointer
 from dasac_tpu_torch.train.metrics import StatManager, summarise
 from dasac_tpu_torch.utils import visualise
-from dasac_tpu_torch.utils.logging import ScalarWriter
+from dasac_tpu_torch.utils.logging import NullWriter, ScalarWriter
 from dasac_tpu_torch.utils.timer import Timer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -41,31 +48,45 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _PANEL_ITEMS = 4
 
 
-def check_single_device(cfg):
-    """Raise ``NotImplementedError`` for the settings that need more than
-    one device or a mode the port's models lack."""
+def check_partition(cfg):
+    """Raise ``NotImplementedError`` for the partitionings and modes the
+    port lacks: height sharding and remat."""
     tpu = cfg.TPU
     if tpu.PARTITION not in ("shard_map", "gspmd"):
         raise ValueError("unknown TPU.PARTITION %r (expected 'shard_map' or "
                          "'gspmd')" % (tpu.PARTITION,))
     unsupported = []
-    if tpu.MESH_DEVICES > 1:
-        unsupported.append("TPU.MESH_DEVICES=%d" % tpu.MESH_DEVICES)
     if tpu.PARTITION == "gspmd":
-        unsupported.append("TPU.PARTITION='gspmd'")
+        unsupported.append("TPU.PARTITION='gspmd' (height sharding, ROADMAP "
+                           "Queue 1 item 10)")
     if tpu.MESH_SP > 1:
-        unsupported.append("TPU.MESH_SP=%d" % tpu.MESH_SP)
+        unsupported.append("TPU.MESH_SP=%d (height sharding, ROADMAP Queue 1 "
+                           "item 10)" % tpu.MESH_SP)
     if tpu.REMAT != "none":
-        unsupported.append("TPU.REMAT=%r" % (tpu.REMAT,))
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        unsupported.append("%d processes" % dist.get_world_size())
+        unsupported.append("TPU.REMAT=%r (remat, ROADMAP Queue 1 items 1 and "
+                           "16)" % (tpu.REMAT,))
     if unsupported:
-        raise NotImplementedError(
-            "the port trains on one device in one process; multi-GPU "
-            "training and remat are not ported yet (ROADMAP Queue 1 items 1 "
-            "and 10): %s" % ", ".join(unsupported))
+        raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
+
+
+def check_divisible(cfg, n):
+    """The global batch dimensions must split evenly over ``n`` ranks."""
+    for name, v in (("TRAIN.BATCH_SIZE", cfg.TRAIN.BATCH_SIZE),
+                    ("TRAIN.NUM_GROUPS", cfg.TRAIN.NUM_GROUPS)):
+        if v % n:
+            raise ValueError("{}={} must be divisible by the {}-device "
+                             "mesh".format(name, v, n))
+
+
+def mesh_size(cfg, available):
+    """The number of data-parallel ranks ``cfg`` asks for:
+    ``TPU.MESH_DEVICES``, where 0 means the largest count up to
+    ``available`` devices that divides both batch dimensions."""
+    check_partition(cfg)
+    n = cfg.TPU.MESH_DEVICES or dist.auto_mesh_size(
+        available, cfg.TRAIN.BATCH_SIZE, cfg.TRAIN.NUM_GROUPS)
+    check_divisible(cfg, n)
+    return n
 
 
 class Trainer:
@@ -74,17 +95,36 @@ class Trainer:
         self.args = args
         self.cfg = cfg
         self.seed = getattr(args, "seed", None) or seed
-        check_single_device(cfg)
         self.device = resolve_device(device)
+        # a process group, when there is one, is the mesh: it spans every
+        # rank whatever TPU.MESH_DEVICES says (dasac_tpu's pod rule)
+        self.group = dist.group()
+        self.world, self.rank = dist.world_size(), dist.rank()
+        self.is_main = self.rank == 0
+        if self.group is None:
+            if mesh_size(cfg, 1) > 1:
+                raise ValueError(
+                    "TPU.MESH_DEVICES={} asks for one process per device: "
+                    "train through train.cli, which spawns them, or join a "
+                    "world with --multiprocessing-distributed".format(
+                        cfg.TPU.MESH_DEVICES))
+        else:
+            check_partition(cfg)
+            check_divisible(cfg, self.world)
+        print("Mesh: {} device(s) / {} process(es){}".format(
+            self.world, self.world,
+            " (data-parallel)" if self.world > 1 else ""))
+        self._build_on_rank0_first(cfg)
 
-        self.loaders = Loaders(cfg, num_replicas=1, rank=0, seed=self.seed)
+        self.loaders = Loaders(cfg, num_replicas=self.world, rank=self.rank,
+                               seed=self.seed)
         self.nclass = self.loaders.num_classes
         self.class_names = self.loaders.class_names
 
         self.arch = cfg.MODEL.ARCH
         self.model = build_model(
             self.arch, self.nclass, dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],
-            device=self.device,
+            device=self.device, group=self.group,
             generator=torch.Generator().manual_seed(self.seed))
         self.scfg = steps_lib.step_config_from_cfg(cfg)._replace(
             num_classes=self.nclass)
@@ -117,42 +157,72 @@ class Trainer:
             getattr(args, "snapshot_dir", None) or "./snapshots")
         self.start_epoch, best = 0, -1e16
         resume = getattr(args, "resume", None)
-        if resume == "auto":
+        if resume == "auto" and self.is_main:
             # preemption recovery: continue from the rolling snapshot
             resume = self.checkpointer.latest_path()
             if resume is None:
                 print("No last.pth found; starting fresh")
-        if resume:
+        if resume and self.is_main:
             state, self.start_epoch, best = self.checkpointer.load(
                 resume, state)
             print("Resumed from {} (epoch {}, score {:.3f})".format(
                 resume, self.start_epoch, best))
+        # rank 0 alone resolved and read the snapshot: every rank takes its
+        # state, epoch and score, bit for bit
+        dist.broadcast_state(state, self.device, group=self.group)
+        self.start_epoch, best = dist.broadcast_values(
+            (self.start_epoch, best), self.device, group=self.group)
+        self.start_epoch = int(self.start_epoch)
         self.best = BestTracker(self.checkpointer, best)
         self.state = state
 
+        g = self.group
         if cfg.MODEL.BASELINE:
-            self.train_step = steps_lib.make_abn_step(self.scfg, self.device)
+            self.train_step = steps_lib.make_abn_step(self.scfg, self.device,
+                                                      group=g)
         else:
-            self.train_step = steps_lib.make_sac_step(self.scfg, self.device)
-        self.eval_step = steps_lib.make_eval_step(self.scfg, self.device)
+            self.train_step = steps_lib.make_sac_step(self.scfg, self.device,
+                                                      group=g)
+        self.eval_step = steps_lib.make_eval_step(self.scfg, self.device,
+                                                  group=g)
         self.target_eval_step = steps_lib.make_target_eval_step(
-            self.scfg, self.device)
+            self.scfg, self.device, group=g)
         self.visual_step = steps_lib.make_visual_step(self.scfg, self.device)
 
         logdir = getattr(args, "logdir", None) or "./logs"
-        self.writer = ScalarWriter(os.path.join(logdir, "train"))
-        self.writer_target = ScalarWriter(os.path.join(logdir, "train_target"))
-        self.writer_val = {vs: ScalarWriter(os.path.join(logdir, vs))
-                           for vs in self.loaders.val}
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            self.seed)
+
+        def writer(sub):
+            if self.is_main:
+                return ScalarWriter(os.path.join(logdir, sub))
+            return NullWriter()
+
+        self.writer = writer("train")
+        self.writer_target = writer("train_target")
+        self.writer_val = {vs: writer(vs) for vs in self.loaders.val}
+        self.generator = self._generator()
         self.fixed = visualise.FixedBatch()
 
+    def _build_on_rank0_first(self, cfg):
+        """In a world, rank 0 builds the CUDA kernels and the native decoder
+        while the others wait, and they load what it built (two ranks'
+        builds would be safe, but redundant)."""
+        if self.group is None:
+            return
+        if not self.is_main:
+            dist.barrier(self.device, self.group)
+        if self.device.type == "cuda":
+            cuda_build.build(ce.SOURCE)
+        if cfg.TPU.NATIVE_LOADER:
+            native_build.build()
+        if self.is_main:
+            dist.barrier(self.device, self.group)
+
     def _generator(self, *salt):
-        """A generator on the device whose seed depends only on ``--seed``
-        and ``salt`` (the counterpart of ``jax.random.fold_in``)."""
+        """A generator on the device whose seed depends only on ``--seed``,
+        ``salt`` and, in a world of more than one rank, the rank (the
+        counterpart of ``jax.random.fold_in`` and ``_fold_axis``)."""
         seed = self.seed
-        for s in salt:
+        for s in salt + ((self.rank,) if self.world > 1 else ()):
             seed = (seed * 1_000_003 + s) % (2 ** 63 - 1)
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -225,8 +295,13 @@ class Trainer:
             return self._validation_target(epoch, max_batches)
 
         bs = max(1, self.cfg.TRAIN.BATCH_SIZE // 2)
-        loader = self.loaders.val_loader(split, batch_size=bs,
-                                         max_batches=max_batches)
+        # sharded: the global batch rounds to whole per-rank batches, and
+        # each rank decodes only its slice of it (the eval step sums the
+        # confusions over the ranks)
+        bs = max(self.world, (bs // self.world) * self.world)
+        loader = self.loaders.val_loader(split, batch_size=bs // self.world,
+                                         max_batches=max_batches,
+                                         distributed=self.world > 1)
         conf = None
         first_batch = None
         for imgs, lbls in loader:
@@ -234,9 +309,13 @@ class Trainer:
                 first_batch = (imgs, lbls)
             c = self.eval_step(self.state, imgs, lbls)
             conf = c if conf is None else conf + c
+        if self.world > 1:
+            print("[val:{}] rank {} decoded {} real images".format(
+                split, self.rank, loader.n_real))
         if conf is None:  # empty split / max_batches == 0
             return 0.0
-        self._visualise_val(writer, split, first_batch, epoch)
+        if self.is_main:
+            self._visualise_val(writer, split, first_batch, epoch)
         return self._publish(writer, "logits_up", conf, epoch, ignore)
 
     @torch.no_grad()
@@ -260,8 +339,8 @@ class Trainer:
         step_target is ``step(train=False)``), publishing logits_up only."""
         ignore = set(self.cfg.VAL.IGNORE_CLASS)
         baseline = self.cfg.MODEL.BASELINE
-        _, tgt_loader = self.loaders.train_loaders(epoch,
-                                                   replicated_eval=True)
+        # sharded like the train step: each rank decodes its groups
+        _, tgt_loader = self.loaders.train_loaders(epoch)
         confs = None
         first_batch = None
         for bi, (imgs, lbls) in enumerate(tgt_loader):
@@ -276,11 +355,11 @@ class Trainer:
                 c = self.target_eval_step(self.state, imgs, lbls,
                                           self._generator(10_000 + epoch, bi))
             confs = c if confs is None else {k: confs[k] + c[k] for k in c}
-        if baseline:
-            if first_batch is not None:  # input/GT/pred panel, like val sets
-                self._visualise_val(self.writer_target, "train_target",
-                                    first_batch, epoch)
-        else:
+        if self.is_main and baseline and first_batch is not None:
+            # input/GT/pred panel, like val sets
+            self._visualise_val(self.writer_target, "train_target",
+                                first_batch, epoch)
+        elif self.is_main and not baseline:
             self._visualise_target(epoch)
         if confs is None:  # empty loader / max_batches == 0
             return 0.0
@@ -347,11 +426,21 @@ class Trainer:
                     s = self.validation(epoch, vs)
                     if vs == self.loaders.testset:
                         score += s
-                saved = self.best.update(self.state, score, epoch)
-                if saved:
-                    print("New best snapshot: {}".format(saved))
+                if self.is_main:
+                    saved = self.best.update(self.state, score, epoch)
+                    if saved:
+                        print("New best snapshot: {}".format(saved))
+                dist.barrier(self.device, self.group)
             self.train_epoch(epoch)
             # rolling preemption-safe snapshot after every epoch
-            self.checkpointer.save_latest(self.state, self.best.best,
-                                          epoch + 1)
+            if self.is_main:
+                self.checkpointer.save_latest(self.state, self.best.best,
+                                              epoch + 1)
+            dist.barrier(self.device, self.group)
+        if self.world > 1:
+            n = dist.assert_replicas_equal(
+                dist.state_tensors(self.state, self.device, group=self.group),
+                self.device, self.group)
+            print("Replicas equal: {} tensors on {} ranks".format(
+                n, self.world))
         return self.state

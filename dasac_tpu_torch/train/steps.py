@@ -13,6 +13,16 @@ step, then a no-grad target forward that only refreshes the BN statistics
 Eval steps: normalized forward -> argmax -> confusion, for the student or
 teacher, for the reference's four target-group layers, and the full
 target-branch outputs for visualisation.
+
+Data parallel: a step built with a process ``group`` is one rank's share
+of the global step, as ``dasac_tpu``'s steps built with ``axis_name`` are
+one shard's.  Each rank's loss is the mean over its own shard; the
+gradients are averaged over the ranks after both backwards and before the
+optimizer step, in one flat all-reduce; the metrics are averaged in one
+small all-reduce; the running confidence averages the batch mean over the
+ranks; confusions are summed.  The model's BN layers were built with the
+same group (``nn.factory.build_model``).  Without a group nothing is
+communicated.
 """
 
 from typing import NamedTuple, Tuple
@@ -23,6 +33,7 @@ from torch.func import functional_call
 from dasac_tpu_torch.aug import photometric as P
 from dasac_tpu_torch.aug import pipelines
 from dasac_tpu_torch.aug.warp import warp_affine
+from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.core.device import resolve_device
 from dasac_tpu_torch.sac import core as sac_core
 from dasac_tpu_torch.sac import refine as sac_refine
@@ -159,7 +170,19 @@ def augment_target(scfg, generator, images, labels):
         greyscale=scfg.tgt_greyscale, mean=scfg.mean, std=scfg.std)
 
 
-def make_sac_step(scfg: StepConfig, device=None):
+def _average_grads(model, group):
+    """``dasac_tpu``'s ``_pmean(grads)``: every rank's ``.grad`` becomes the
+    mean over the ranks, in one flat all-reduce."""
+    dist.all_reduce_mean_([p.grad for p in model.parameters()
+                           if p.grad is not None], group)
+
+
+def _average_metrics(metrics, group):
+    dist.all_reduce_mean_(list(metrics.values()), group)
+    return metrics
+
+
+def make_sac_step(scfg: StepConfig, device=None, group=None):
     """Returns ``step(state, batch, generator) -> metrics``.
 
     ``batch`` = (src_images u8 [B,H0,W0,3], src_labels [B,H0,W0],
@@ -167,10 +190,10 @@ def make_sac_step(scfg: StepConfig, device=None):
     or numpy arrays; they are moved to ``device`` (default CUDA; raises when
     there is none), which must be the state's.  ``generator`` is a
     ``torch.Generator`` on that device; it draws the augmentation.  The
-    state is updated in place.
+    state is updated in place.  ``group``: see the module's docstring.
     """
     device = resolve_device(device)
-    views_step = make_sac_views_step(scfg)
+    views_step = make_sac_views_step(scfg, group=group)
 
     def step(state, batch, generator):
         src_images, src_labels, tgt_images, tgt_labels = _to_device(
@@ -186,7 +209,7 @@ def make_sac_step(scfg: StepConfig, device=None):
     return step
 
 
-def make_sac_views_step(scfg: StepConfig, debug=False):
+def make_sac_views_step(scfg: StepConfig, debug=False, group=None):
     """The SAC iteration on PRE-AUGMENTED inputs.
 
     ``views_step(state, src_frames, src_lbls, views, generator=None)`` with
@@ -235,7 +258,7 @@ def make_sac_views_step(scfg: StepConfig, debug=False):
                 pool_on=scfg.pool_on, compute_dtype=rd, res=scfg.refine_res)
             running_conf = sac_core.update_running_conf(
                 running_conf, diags["teacher_probs"], scfg.stat_momentum,
-                scfg.threshold_beta)
+                scfg.threshold_beta, group=group)
             pseudo, conf, _ = sac_core.pseudo_labels(
                 refined, views.padding, running_conf,
                 upper=scfg.run_conf_upper, lower=scfg.run_conf_lower,
@@ -264,6 +287,7 @@ def make_sac_views_step(scfg: StepConfig, debug=False):
             use_conf=scfg.use_conf_loss, compute_dtype=ld, impl=scfg.ce_impl)
         (scfg.lr_target * self_ce).backward()
         del tgt_up
+        _average_grads(model, group)
 
         grads = None
         if debug and debug != "light":
@@ -274,13 +298,13 @@ def make_sac_views_step(scfg: StepConfig, debug=False):
         state.running_conf = running_conf
         state.slow_init = slow_init
         state.step += 1
-        metrics = {
+        metrics = _average_metrics({
             "src_loss_ce": ce_src.detach(),
             "self_ce": self_ce.detach(),
             "teacher_diff": teacher_diff,
             "pseudo_cover": (pseudo != sac_core.IGNORE).float().mean(),
             "self_ce_per_class": per_class,
-        }
+        }, group)
         if debug:
             metrics.update(pseudo=pseudo, running_conf=running_conf)
             if debug != "light":
@@ -294,7 +318,7 @@ def make_sac_views_step(scfg: StepConfig, debug=False):
 # ABN baseline step
 # ---------------------------------------------------------------------------
 
-def make_abn_step(scfg: StepConfig, device=None):
+def make_abn_step(scfg: StepConfig, device=None, group=None):
     """ABN: source CE training with live BN + a target stats-only pass.
 
     Returns ``step(state, batch, generator) -> metrics`` with ``batch`` =
@@ -305,10 +329,11 @@ def make_abn_step(scfg: StepConfig, device=None):
     datasets/__init__.py:51-53), so the target frames go through the
     SOURCE pipeline (source scale range, jitter, blur) with the standard
     ``mean``/``std``, not the renormalized source statistics.  The teacher
-    tensors and ``running_conf`` are left as they are.
+    tensors and ``running_conf`` are left as they are.  ``group``: see the
+    module's docstring.
     """
     device = resolve_device(device)
-    frames_step = make_abn_frames_step(scfg)
+    frames_step = make_abn_frames_step(scfg, group=group)
 
     def step(state, batch, generator):
         return frames_step(state, *augment_abn(scfg, generator,
@@ -335,7 +360,7 @@ def augment_abn(scfg: StepConfig, generator, batch):
     return out
 
 
-def make_abn_frames_step(scfg: StepConfig):
+def make_abn_frames_step(scfg: StepConfig, group=None):
     """The ABN iteration on PRE-AUGMENTED inputs:
     ``frames_step(state, src_frames, src_lbls, tgt_frames, tgt_lbls,
     generator=None) -> {"src_loss_ce", "loss_ce"}``, updating ``state`` in
@@ -359,6 +384,7 @@ def make_abn_frames_step(scfg: StepConfig):
                                              impl=scfg.ce_impl)
         ce_src.backward()
         del src_up
+        _average_grads(model, group)
         opt.step()
 
         # target pass: BN statistics only, no gradient (train.py:286-289)
@@ -368,7 +394,8 @@ def make_abn_frames_step(scfg: StepConfig):
             ce_tgt = sac_core.cross_entropy_mean(tgt_up, tgt_lbls,
                                                  impl=scfg.ce_impl)
         state.step += 1
-        return {"src_loss_ce": ce_src.detach(), "loss_ce": ce_tgt}
+        return _average_metrics({"src_loss_ce": ce_src.detach(),
+                                 "loss_ce": ce_tgt}, group)
 
     return frames_step
 
@@ -388,11 +415,13 @@ def _eval_forward(state, x, teacher=False):
     return state.model(x, **kw)
 
 
-def make_eval_step(scfg: StepConfig, device=None, teacher=False):
+def make_eval_step(scfg: StepConfig, device=None, teacher=False,
+                   group=None):
     """Plain eval: ``step(state, images_u8 [B,H,W,3], labels [B,H,W]) ->
     int64 confusion [C, C]`` (normalized forward -> argmax -> confusion),
     for the student or, with ``teacher``, the teacher's tensors.  Inputs
-    move to ``device`` (default CUDA; raises when there is none)."""
+    move to ``device`` (default CUDA; raises when there is none).  With a
+    process ``group`` the confusion is summed over its ranks."""
     device = resolve_device(device)
 
     @torch.no_grad()
@@ -400,12 +429,14 @@ def make_eval_step(scfg: StepConfig, device=None, teacher=False):
         images_u8, labels = _to_device(device, images_u8, labels)
         x = P.normalize(images_u8.float() / 255.0, scfg.mean, scfg.std)
         _, up = _eval_forward(state, x, teacher)
-        return confusion_matrix(up.argmax(-1), labels, scfg.num_classes)
+        conf = confusion_matrix(up.argmax(-1), labels, scfg.num_classes)
+        dist.all_reduce_sum_([conf], group)
+        return conf
 
     return step
 
 
-def make_target_eval_step(scfg: StepConfig, device=None):
+def make_target_eval_step(scfg: StepConfig, device=None, group=None):
     """Target-group eval: ``step(state, tgt_images u8 [G,H,W,3],
     tgt_labels [G,H,W], generator) -> {layer: int64 confusion [C, C]}`` for
     the reference's four layers (logits_up / teacher_init /
@@ -413,7 +444,9 @@ def make_target_eval_step(scfg: StepConfig, device=None):
 
     The refine/pseudo-label chain runs with the training ``refine_res`` /
     ``refine_dtype``, so teacher_refined/teacher_labels measure the labels
-    training consumes.  ``generator`` draws the target augmentation."""
+    training consumes.  ``generator`` draws the target augmentation.  With
+    a process ``group`` the confusions are summed over its ranks (one
+    all-reduce)."""
     device = resolve_device(device)
     rd = torch.bfloat16 if scfg.refine_dtype == "bfloat16" else None
     rd_pl = _DTYPES[scfg.refine_dtype]
@@ -434,7 +467,7 @@ def make_target_eval_step(scfg: StepConfig, device=None):
             upper=scfg.run_conf_upper, lower=scfg.run_conf_lower,
             threshold_beta=scfg.threshold_beta, discount=scfg.conf_discount,
             compute_dtype=rd_pl)
-        return {
+        confs = {
             "logits_up": confusion_matrix(student_up.argmax(-1),
                                           views.labels, c),
             "teacher_init": confusion_matrix(t_up.argmax(-1), views.labels,
@@ -443,6 +476,8 @@ def make_target_eval_step(scfg: StepConfig, device=None):
                                                 views.labels, c),
             "teacher_labels": confusion_matrix(pseudo, views.labels, c),
         }
+        dist.all_reduce_sum_(list(confs.values()), group)
+        return confs
 
     return step
 

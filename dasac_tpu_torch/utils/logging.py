@@ -1,5 +1,6 @@
 """Observability: scalar/image writers (counterpart of
-``dasac_tpu/utils/logging.py``; reference base_trainer.py TB usage).
+``dasac_tpu/utils/logging.py``; reference base_trainer.py TB usage).  Data
+parallel: rank 0 writes, the other ranks get a :class:`NullWriter`.
 
 Every scalar goes to a JSONL event log, ``events.jsonl`` (machine-readable,
 the same records as ``dasac_tpu`` writes); when torch's SummaryWriter is
@@ -50,3 +51,17 @@ class ScalarWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter:
+    """What the ranks other than 0 write to: nothing (reference
+    train.py:523 logs from rank 0 only)."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def add_image(self, tag, image_hwc, step):
+        pass
+
+    def close(self):
+        pass

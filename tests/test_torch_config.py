@@ -20,6 +20,7 @@ import yaml
 from dasac_tpu.core import config as jconfig
 from dasac_tpu.core import opts as jopts
 from dasac_tpu_torch.core import config as tconfig
+from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.core import opts as topts
 from dasac_tpu_torch.core import yaml_subset
 
@@ -170,7 +171,29 @@ def test_get_arguments_equal_namespaces(tmp_path):
 @pytest.mark.parametrize("flags", [["--multiprocessing-distributed"],
                                    ["--world-size", "2"]])
 def test_opts_refuse_more_than_one_process(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        topts.get_arguments(["--cfg", "x.yaml", "--logdir",
-                             str(tmp_path / "l"), "--snapshot-dir",
-                             str(tmp_path / "s")] + flags)
+    """Both flags once raised; now each parses, as dasac_tpu's opts do,
+    into the launch plan of the world the process joins: the environment's
+    (torchrun's) with ``--multiprocessing-distributed``, ``--world-size``
+    processes at ``--dist-url`` (or MASTER_ADDR/MASTER_PORT) otherwise."""
+    base = ["--cfg", "x.yaml", "--logdir", str(tmp_path / "l"),
+            "--snapshot-dir", str(tmp_path / "s")]
+    args = topts.get_arguments(base + flags)
+    assert vars(args) == vars(jopts.get_arguments(base + flags))
+    env = {"MASTER_ADDR": "10.0.0.1", "MASTER_PORT": "29500",
+           "WORLD_SIZE": "4", "RANK": "3", "LOCAL_RANK": "1"}
+    plan = topts.launch_plan(args, env)
+    if "--multiprocessing-distributed" in flags:
+        assert plan == dist.Launch("10.0.0.1:29500", 4, 3, 1)
+        with pytest.raises(ValueError, match="MASTER_ADDR, WORLD_SIZE"):
+            topts.launch_plan(args, {"MASTER_ADDR": "10.0.0.1"})
+    else:
+        assert plan == dist.Launch("10.0.0.1:29500", 2, 0, 1)
+        args = topts.get_arguments(base + flags + [
+            "--rank", "1", "--dist-url", "tcp://host0:23456"])
+        assert topts.launch_plan(args, {}) == dist.Launch("host0:23456", 2,
+                                                          1, 0)
+        args.dist_url = "file:///shared/init"
+        with pytest.raises(ValueError, match="--dist-url"):
+            topts.launch_plan(args, {})
+    # neither flag: no world to join (the trainer CLI may still spawn one)
+    assert topts.launch_plan(topts.get_arguments(base), env) is None

@@ -16,22 +16,31 @@ plain versions at the VGG ABN step's 16x640x640 rows, one FCN8s SAC step
 is counted at 2 + 2 launches on the bulk path, and ``run_inference``'s
 exported labels are the argmax of its exported probabilities.  The card's
 machine builds the C++ PNG decoder, and a resize-mode batch takes its
-native route.
+native route.  Data parallel: the ABN frames step (shallow r101, f32,
+64x64, live BN) in a NCCL world of one rank equals, bit for bit, the same
+step with no process group (cuDNN's deterministic algorithms on); two
+gloo ranks sharing the card run the tiny arch's ABN frames step on their
+shards and end with bit-equal states.
 
 Without a card every test here skips.  Tolerances, absolute: NLL 1e-4 (a
 few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
 (2^-8), since both sides round the same f32 value to bf16.
 """
 
+import json
+import os
+
 import pytest
 import torch
 
+from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.core.state import create_train_state
 from dasac_tpu_torch.infer import engine
 from dasac_tpu_torch.nn.factory import build_model
 from dasac_tpu_torch.ops import ce, ce_triton
 from dasac_tpu_torch.sac import core
 from dasac_tpu_torch.train import optim, steps
+from dasac_tpu_torch.utils.sys_tools import find_free_port
 
 pytestmark = pytest.mark.gpu
 
@@ -423,3 +432,84 @@ def test_resize_batches_take_the_native_route_on_the_card_host(cuda,
         want = png.to_mask(png.read(masks[i]))[1::2, 1::2]
         assert img.shape == (24, 40, 3)
         np.testing.assert_array_equal(mask, want)
+
+
+def _abn_frames(dev, n, hw, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    src_y = torch.randint(0, 19, (n, *hw), generator=g, device=dev,
+                          dtype=torch.int32)
+    tgt_y = torch.randint(0, 19, (n, *hw), generator=g, device=dev,
+                          dtype=torch.int32)
+    return (torch.randn(n, *hw, 3, generator=g, device=dev), src_y,
+            torch.randn(n, *hw, 3, generator=g, device=dev), tgt_y)
+
+
+def _abn_state(arch, dev, group, **kw):
+    model = build_model(arch, 19, device=dev, group=group,
+                        generator=torch.Generator().manual_seed(0), **kw)
+    return create_train_state(
+        model, optim.build_optimizer(_MC, arch, model), 19, device=dev)
+
+
+def test_one_rank_nccl_step_equals_the_step_without_a_group(cuda,
+                                                            monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    scfg = steps.StepConfig(num_classes=19, crop_hw=(64, 64),
+                            ce_impl="kernel")
+    frames = _abn_frames(cuda, 2, (64, 64), 0)
+    dist.init(dist.Launch("127.0.0.1:%d" % find_free_port(), 1, 0),
+              torch.device("cuda", 0))
+    try:
+        runs = []
+        for group in (dist.group(), None):
+            state = _abn_state("deeplabv2_resnet101", cuda, group,
+                               layers=(1, 1, 1, 1))
+            calls = dict(dist.CALLS)
+            m = steps.make_abn_frames_step(scfg, group=group)(state,
+                                                              *frames)
+            runs.append((m, state.model.state_dict(),
+                         {k: dist.CALLS[k] - calls[k] for k in calls}))
+    finally:
+        dist.destroy()
+    (m_g, sd_g, calls_g), (m_p, sd_p, calls_p) = runs
+    # 17 BN layers: two batch-statistics passes forward, one backward
+    assert calls_g["bn"] == 34 and calls_g["bn_grad"] == 17
+    assert calls_g["mean"] == 2 and not any(calls_p.values())
+    for k in m_p:
+        assert torch.equal(m_g[k], m_p[k]), k
+    for k in sd_p:
+        assert torch.equal(sd_g[k], sd_p[k]), k
+
+
+def _gloo_rank(rank, addr, out_dir):
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init(dist.Launch(addr, 2, rank, rank), dev, backend="gloo")
+    try:
+        state = _abn_state("tiny", dev, dist.group())
+        frames = [t[2 * rank:2 * rank + 2]
+                  for t in _abn_frames(dev, 4, (64, 64), 1)]
+        m = steps.make_abn_frames_step(
+            steps.StepConfig(num_classes=19, crop_hw=(64, 64),
+                             ce_impl="kernel"), group=dist.group())(
+            state, *frames)
+        n = dist.assert_replicas_equal(
+            dist.state_tensors(state, dev, group=dist.group()), dev,
+            dist.group())
+    finally:
+        dist.destroy()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(dict(equal=n, losses={k: float(v) for k, v in m.items()}),
+                  f)
+
+
+def test_two_gloo_ranks_on_one_card_end_equal(cuda, tmp_path):
+    torch.multiprocessing.spawn(
+        _gloo_rank, args=("127.0.0.1:%d" % find_free_port(),
+                          str(tmp_path)), nprocs=2, join=True)
+    out = [json.loads((tmp_path / ("rank%d.json" % r)).read_text())
+           for r in range(2)]
+    assert out[0]["equal"] == out[1]["equal"] > 0
+    # the losses are averaged over the ranks: the same on both
+    assert out[0]["losses"] == out[1]["losses"]

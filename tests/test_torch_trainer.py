@@ -284,9 +284,19 @@ def test_trainer_loads_init_model(root, tmp_path, torchvision_sd, capsys,
     ("TPU.MESH_DEVICES", "2"), ("TPU.PARTITION", "gspmd"),
     ("TPU.MESH_SP", "2"), ("TPU.REMAT", "block")])
 def test_multi_device_settings_raise(key, value):
-    tconfig.cfg_from_list([key, value])
-    with pytest.raises(NotImplementedError, match="items 1 and 10"):
-        loop.check_single_device(tconfig.cfg)
+    """Height sharding and remat still raise, naming their ROADMAP items;
+    a data-parallel mesh is no longer refused: it is the number of ranks
+    the train CLI spawns (tests/test_torch_dist.py runs them)."""
+    tconfig.cfg_from_list([key, value, "TRAIN.NUM_GROUPS", "2"])
+    if key == "TPU.MESH_DEVICES":
+        assert loop.mesh_size(tconfig.cfg, available=1) == 2
+        # one process alone cannot be a mesh of 2
+        with pytest.raises(ValueError, match="one process per device"):
+            loop.Trainer(None, tconfig.cfg, device="cpu")
+        return
+    item = "items 1 and 16" if key == "TPU.REMAT" else "item 10"
+    with pytest.raises(NotImplementedError, match=item):
+        loop.mesh_size(tconfig.cfg, available=1)
 
 
 def test_profile_writes_a_trace(root, tmp_path):
