@@ -141,17 +141,37 @@ no result line:
               full-depth ABN step on its forward, see ``DDP_KINDS``),
               then a second step timed; per rank step ms, peak memory,
               the gradient all-reduce's ms and bytes, the BN collectives
-              a step, start and group set-up seconds.
+              a step, start and group set-up seconds;
+ 17. recipe   the three-stage recipe (``dasac_tpu_torch.tools.recipe``)
+              in this process, r101 at full width, on a domain-gap
+              corpus cut to 16 source frames of 1052x1914, 4 target
+              frames and 2 frames a val split of 1024x2048, under
+              ``build/smoke_recipe`` (removed after): ABN epochs 0-1 (2
+              steps each), the gate reported and not enforced
+              (``--gate-ce inf``: two epochs cannot converge), the mask
+              export, the IS weights, SAC target-only with the weights and
+              the control (epoch 2 each), the 8 evals; checked: the
+              stages' records (also in the records file), 2 + 1 CE
+              launches a step in ABN and the control and 1 + 1 in SAC, all
+              bulk, none outside the train stages, the SAC stage's
+              ``TARGET_ONLY`` (its logged source CE 0) and
+              ``SAMPLE_WEIGHTS``, one mask per target frame, IS weights
+              that ``ImportanceSampler`` reads with class densities moved
+              from uniform for exactly the classes whose pixel share
+              differs between the exported masks (none when the two-epoch
+              ABN predicts one class everywhere), every mIoU finite in
+              [0, 1].
 Each phase prints one JSON line with the card's name and power limit.
-Phases 10, 13, 14 and 15 call each entry point with cuDNN autotuning off,
-as a new process starts, and check that the entry point turned it on.
+Phases 10, 13, 14, 15 and 17 call each entry point with cuDNN autotuning
+off, as a new process starts, and check that the entry point turned it on.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``; the CUDA rows of the kernels
 line carry the trainer's launches (``launches_train``), the VGG steps'
 (``launches_vgg``), the trainer's from the dataset tools' packs
 (``launches_dataset``) and phase 16's by part (``launches_ddp``: the NCCL
-world's steps and CLI stages, each gloo rank's steps).
+world's steps and CLI stages, each gloo rank's steps) and phase 17's by
+train stage (``launches_recipe``).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -2738,6 +2758,147 @@ def run_ddp(ce, ce_triton, device, card):
 
 # ---------------------------------------------------------------------------
 
+RECIPE_BASE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke_recipe")
+# the recipe cut to the smoke: 16 GTA-sized source frames (two batches: the
+# trainer prints an epoch's first step once the second is launched, and
+# the gate reads those lines), 4 Cityscapes-sized target frames and 2
+# frames a val split at native sizes; ABN epochs 0..1, SAC and the control
+# epoch 2; the gate reported, not enforced (two epochs cannot converge)
+RECIPE_N = {"--n-src": 16, "--n-tgt": 4, "--n-val": 2}
+RECIPE_ARGS = [a for k, v in RECIPE_N.items() for a in (k, str(v))] + [
+    "--epochs1", "1", "--epochs2", "1", "--gate-ce", "inf"]
+# CE launches a step: ABN and the control 2 + 1 (source and target CE,
+# the source backward); target-only SAC 1 + 1 (the self-supervised CE)
+RECIPE_PER_STEP = {"abn": (2, 1), "sac": (1, 1), "control": (2, 1)}
+
+
+def run_recipe(ce, ce_triton, device, card):
+    """Phase 17: ``tools.recipe`` end to end in this process, on a cut
+    corpus at native sizes, r101 at full width; returns the CE launches of
+    each train stage."""
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.data import png, sampler
+    from dasac_tpu_torch.tools import recipe
+
+    work = RECIPE_BASE
+    prior = 0.25  # DATASET.SAMPLE_UNIFORM_PRIOR of the config
+    out = os.path.join(work, "records.jsonl")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        fresh_cudnn()
+        reset_counts(ce, ce_triton)
+        t0 = time.perf_counter()
+        records = recipe.main(["--work", work, "--out", out] + RECIPE_ARGS,
+                              device=device.type)
+        wall = time.perf_counter() - t0
+        launches = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
+        triton_launches = dict(ce_triton.LAUNCHES)
+        need(torch.backends.cudnn.benchmark == (device.type == "cuda"),
+             "the recipe's entry points did not set cuDNN autotuning")
+        with open(out) as f:
+            need([json.loads(line) for line in f]
+                 == json.loads(json.dumps(records)),
+                 "the records file differs from the records returned")
+        need([r["stage"] for r in records]
+             == ["abn", "gate", "export", "weights", "sac", "control"]
+             + ["eval"] * 7 + ["summary"],
+             "recipe stages %s" % [r["stage"] for r in records])
+        by = {(r["stage"], r.get("model"), r.get("domain")): r
+              for r in records}
+        stages = {st: by[(st, None, None)] for st in RECIPE_PER_STEP}
+
+        # train stages: steps, finite step times, every CE launch bulk,
+        # as many as the steps make, none outside them, no Triton
+        total = {k: 0 for k in ce.PATH_LAUNCHES}
+        for st, (fwd, bwd) in RECIPE_PER_STEP.items():
+            r = stages[st]
+            by_path = r["ce_launches_by_path"]
+            want = {"nll_fwd": fwd * r["steps"], "nll_bwd": bwd * r["steps"]}
+            need(r["steps"] > 0 and math.isfinite(r["step_ms"]),
+                 "%s: %s steps, %s ms" % (st, r["steps"], r["step_ms"]))
+            need(by_path == {k: {"bulk": n, "strided": 0}
+                             for k, n in want.items()},
+                 "%s: CE launches %s, want %s all bulk" % (st, by_path, want))
+            for k in total:
+                total[k] += by_path[k]["bulk"]
+        need(launches == {k: {"bulk": n, "strided": 0}
+                          for k, n in total.items()},
+             "CE launches outside the train stages: %s vs %s"
+             % (launches, total))
+        need(not any(triton_launches.values()),
+             "the Triton yardstick ran in the recipe: %s" % triton_launches)
+
+        # SAC ran target-only with the IS weights; the weights read back
+        # with class densities moved from uniform
+        sac = stages["sac"]
+        weights = os.path.join(work, "cs_weights.data")
+        need(sac["target_only"] is True and sac["sample_weights"] == weights,
+             "SAC stage: target_only %s, weights %s"
+             % (sac["target_only"], sac["sample_weights"]))
+        with open(os.path.join(work, "stage4_sac.log")) as f:
+            src_ce = [float(v) for v in
+                      re.findall(r"src_loss_ce ([0-9.eE+-]+)", f.read())]
+        need(src_ce and not any(src_ce),
+             "target-only SAC logged a source CE: %s" % src_ce)
+        masks = sorted(f for f in os.listdir(os.path.join(work, "masks_tgt"))
+                       if f.endswith(".png"))
+        need(masks == ["tgt_%03d.png" % i for i in range(RECIPE_N["--n-tgt"])]
+             and by[("export", None, None)]["masks"] == len(masks),
+             "exported masks %s" % masks)
+        w = sampler.load_sample_weights(weights)
+        need(sorted(w) == masks, "IS weights cover %s" % sorted(w))
+        shifted = recipe.shifted_classes(sampler.ImportanceSampler(
+            len(masks), C, mask_names=masks, weights=w, prior_weight=prior))
+        # the classes whose share of pixels differs between the exported
+        # masks, counted here: the densities can move only for those (a
+        # collapsed two-epoch ABN that predicts one class everywhere
+        # gives uniform weights, and the line says so)
+        counts = np.stack([np.bincount(
+            png.read(os.path.join(work, "masks_tgt", m)).pixels.reshape(-1),
+            minlength=256)[:C] for m in masks]).astype(np.float64)
+        share = counts / np.maximum(counts.sum(0), 1)
+        want = [c for c in range(C) if counts[:, c].any() and (1 - prior)
+                * np.abs(share[:, c] - 1 / len(masks)).max() > 1e-3]
+        need(shifted == want == sac["is_shifted_classes"],
+             "IS class densities moved from uniform: %s, the SAC stage's "
+             "sampler %s, from the masks' pixel counts %s"
+             % (shifted, sac["is_shifted_classes"], want))
+
+        mious = {"_".join(k): dict(miou=r["miou"], jax_miou=r.get(
+            "jax_miou")) for k, r in by.items() if "miou" in r}
+        need(len(mious) == 8 and all(
+            math.isfinite(v["miou"]) and 0.0 <= v["miou"] <= 1.0
+            for v in mious.values()), "mIoUs %s" % mious)
+        gate = by[("gate", "abn", "source")]
+        need(math.isfinite(gate["src_ce_tail"]), "gate CE %s"
+             % gate["src_ce_tail"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps(dict(
+        phase="recipe", card=card, wall_s=wall,
+        corpus={k.lstrip("-"): v for k, v in RECIPE_N.items()},
+        gate=dict(enforced=False, gate_ce=gate["gate_ce"],
+                  src_ce_tail=gate["src_ce_tail"],
+                  note="reported, not enforced: two ABN epochs cannot "
+                       "converge; the gate guards device time"),
+        stages={st: {k: r[k] for k in ("wall_s", "steps", "step_ms",
+                                       "peak_gb", "ce_launches_by_path",
+                                       "start_epoch")}
+                for st, r in stages.items()},
+        export_s=by[("export", None, None)]["wall_s"],
+        is_shifted_classes=shifted,
+        mask_classes=[c for c in range(C) if counts[:, c].any()],
+        miou=mious,
+        summary_wall_s=records[-1]["wall_s"])))
+    return {st: {k: by_path["bulk"] for k, by_path in
+                 stages[st]["ce_launches_by_path"].items()}
+            for st in stages}
+
+
 def main(argv=()):
     import argparse
 
@@ -2832,6 +2993,8 @@ def main(argv=()):
     lap("dataset")
     ddp = run_ddp(ce, ce_triton, device, card)
     lap("ddp")
+    recipe_launches = run_recipe(ce, ce_triton, device, card)
+    lap("recipe")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -2881,6 +3044,10 @@ def main(argv=()):
                 gloo_ranks=[{kind: (got[k] if route == "cuda" else 0)
                              for kind, got in r.items()}
                             for r in ddp["gloo_ranks"]])
+            # the recipe's train stages (phase 17)
+            row["launches_recipe"] = {
+                st: (got[k] if route == "cuda" else 0)
+                for st, got in recipe_launches.items()}
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

@@ -22,6 +22,7 @@ other than "none"; items 1 and 16) raise ``NotImplementedError``.
 """
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -201,6 +202,9 @@ class Trainer:
         self.writer_val = {vs: writer(vs) for vs in self.loaders.val}
         self.generator = self._generator()
         self.fixed = visualise.FixedBatch()
+        # (epoch, index in the epoch, ms) of every train step run: the
+        # time between marks around the step call, CUDA events on the card
+        self.step_ms = []
 
     def _build_on_rank0_first(self, cfg):
         """In a world, rank 0 builds the CUDA kernels and the native decoder
@@ -226,6 +230,24 @@ class Trainer:
             seed = (seed * 1_000_003 + s) % (2 ** 63 - 1)
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def _mark(self):
+        """A CUDA event recorded on the current stream on the card, the
+        host clock elsewhere: no synchronization."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def _elapsed_ms(self, marks):
+        """ms between each ``(start, end)`` pair of marks, once the last
+        end is reached."""
+        if self.device.type == "cuda":
+            if marks:
+                marks[-1][1].synchronize()
+            return [a.elapsed_time(b) for a, b in marks]
+        return [(b - a) * 1e3 for a, b in marks]
+
     def close(self):
         for w in (self.writer, self.writer_target, *self.writer_val.values()):
             w.close()
@@ -241,10 +263,13 @@ class Trainer:
                            cfg.TRAIN.NUM_GROUPS * cfg.TRAIN.GROUP_SIZE)
 
         pending = None  # read the metrics one step late (no sync stall)
+        marks = []
         for i, ((src_i, src_l), (tgt_i, tgt_l)) in enumerate(
                 zip(src_loader, tgt_loader)):
+            start = self._mark()
             metrics = self.train_step(self.state, (src_i, src_l, tgt_i, tgt_l),
                                       self.generator)
+            marks.append((start, self._mark()))
             if pending is not None:
                 pi, pmetrics = pending
                 self._log_train(stat, pending, epoch)
@@ -261,6 +286,8 @@ class Trainer:
             pending = (i, metrics)
         if pending is not None:
             self._log_train(stat, pending, epoch)
+        self.step_ms.extend((epoch, i, ms) for i, ms in
+                            enumerate(self._elapsed_ms(marks)))
 
         for name, val in stat.items():
             self.writer.add_scalar("train_epoch/{}".format(name), val, epoch)

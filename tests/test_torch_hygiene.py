@@ -70,7 +70,8 @@ def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
                  "data/native.py", "data/native_build.py",
                  "data/id_mappers.py", "data/png16.py",
                  "tools/convert_train_ids.py", "tools/make_split_lists.py",
-                 "tools/check_dataset.py", "tools/pack_dataset.py"):
+                 "tools/check_dataset.py", "tools/pack_dataset.py",
+                 "tools/recipe.py"):
         assert REPO / "dasac_tpu_torch" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}
@@ -131,6 +132,18 @@ def test_inference_entry_points_raise_without_a_device(monkeypatch, tmp_path,
         engine.run_inference(build_model("tiny", 5, device="cpu"), None,
                              str(tmp_path / "out"), mean=(0.5,) * 3,
                              std=(0.2,) * 3)
+    assert not any(tmp_path.iterdir())
+
+
+def test_recipe_raises_without_a_device_before_touching_data(monkeypatch,
+                                                            tmp_path):
+    from dasac_tpu_torch.tools import recipe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe.main(["--work", str(tmp_path / "work"), "--out",
+                     str(tmp_path / "records.jsonl")])
+    # no corpus, no record, no directory
     assert not any(tmp_path.iterdir())
 
 
