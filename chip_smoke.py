@@ -160,9 +160,34 @@ no result line:
               from uniform for exactly the classes whose pixel share
               differs between the exported masks (none when the two-epoch
               ABN predicts one class everywhere), every mIoU finite in
-              [0, 1].
+              [0, 1];
+ 18. infer_mesh  inference over a world of ranks (``core/mesh.py``,
+              ``nn/spatial.py``), the full-width, full-depth r101 with
+              random weights from the seed: (a) a NCCL world of one rank
+              in this process: ``run_inference`` over a synthetic
+              Cityscapes-val root of 4 frames at 1024x2048 under
+              ``build/smoke_infer_mesh`` (removed after) in bf16 with the
+              world's group and with none (labels and confusion bit-equal,
+              no row exchanged, no CE launch), then ``tools.bench_infer
+              --mode batch`` and ``--mode spatial --sp 1`` in the world;
+              (b) 4 spawned ranks sharing the card over gloo (CUDA tensors
+              staged through host memory), no TF32: each pair of ranks
+              splitting the height of its own 1024x2048 frame (the 2 x 2
+              combined mesh, ``spatial=2``) and all 4 on one frame
+              (``spatial=-1``), one scale fused at full resolution and 3
+              scales + flip fused at stride 8, in f32 and bf16, and a
+              1050x1914 frame edge-padded to 1052 rows over the 4 ranks
+              (1052 tiles 2 and 4); uint8 frames from ``RandomState(0)``;
+              each case run twice, the second timed; every case held
+              against the unsharded forward in this process on the same
+              frame (the padded canvas for the padded frame; its second
+              call timed beside the ranks' ms): f32
+              probabilities within 1e-4 and labels equal on >= 99.99% of
+              pixels, bf16 labels on >= 99.8%; every rank exchanged rows.
+              Per rank: ms per frame, exchanges and bytes a forward by
+              layer kind, peak GB, the transport.
 Each phase prints one JSON line with the card's name and power limit.
-Phases 10, 13, 14, 15 and 17 call each entry point with cuDNN autotuning
+Phases 10, 13, 14, 15, 17 and 18 call each entry point with cuDNN autotuning
 off, as a new process starts, and check that the entry point turned it on.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last
@@ -170,8 +195,11 @@ line is ``{"ok": true, "device": {...}}``; the CUDA rows of the kernels
 line carry the trainer's launches (``launches_train``), the VGG steps'
 (``launches_vgg``), the trainer's from the dataset tools' packs
 (``launches_dataset``) and phase 16's by part (``launches_ddp``: the NCCL
-world's steps and CLI stages, each gloo rank's steps) and phase 17's by
-train stage (``launches_recipe``).
+world's steps and CLI stages, each gloo rank's steps), phase 17's by
+train stage (``launches_recipe``) and phase 18's (``launches_infer_mesh``:
+inference launches no CE kernel, so 0).
+
+``python3 chip_smoke.py --infer-mesh-only`` runs phase 18 alone.
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -1674,8 +1702,8 @@ INFER_RUNS = {"single": ["--batch", "1"],
                                      "--batch", "2"]}
 
 
-def write_cityscapes_val(root, card):
-    """A Cityscapes-val layout of ``INFER_FRAMES`` frames at 1024x2048,
+def write_cityscapes_val(root, card, frames=INFER_FRAMES):
+    """A Cityscapes-val layout of ``frames`` frames at 1024x2048,
     written by the port's PNG encoder: ``leftImg8bit/val/<city>/``, the
     masks the split list names (trainIds, as the reference's converted
     ``gtFine2``) and ``gtFine/val/<city>/*_gtFine_labelIds.png``
@@ -1693,7 +1721,7 @@ def write_cityscapes_val(root, card):
     lines, jobs = [], []
     t0 = time.perf_counter()
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-        for i in range(INFER_FRAMES):
+        for i in range(frames):
             stem = "frankfurt_%06d_000019" % i
             lbl = np.repeat(np.repeat(rng.randint(0, C, (h // 64, w // 64)),
                                       64, 0), 64, 1).astype(np.uint8)
@@ -1718,7 +1746,7 @@ def write_cityscapes_val(root, card):
     with open(os.path.join(root, "val_cityscapes.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     log("infer_root: %s" % json.dumps(dict(
-        phase="infer_root", card=card, frames=INFER_FRAMES, hw=list(INFER_HW),
+        phase="infer_root", card=card, frames=frames, hw=list(INFER_HW),
         write_s=time.perf_counter() - t0)))
 
 
@@ -2899,6 +2927,337 @@ def run_recipe(ce, ce_triton, device, card):
             for st in stages}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: inference over a world of ranks (height sharding)
+# ---------------------------------------------------------------------------
+
+MESH_BASE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "smoke_infer_mesh")
+MESH_FRAMES = 4      # frames of (a)'s synthetic Cityscapes-val root
+MESH_RANKS = 4       # (b)'s gloo ranks on the one card
+# 1052 rows (GTA's canonical height) tile 2 and 4 ranks; 1050 rows do not,
+# and edge-pad to 1052 with 4 ranks a frame, as dasac_tpu pads
+MESH_PAD_HW = (1050, 1914)
+MESH_SETTINGS = {"single": dict(scales=(1.0,), fuse="full"),
+                 "multi_flip_stride8": dict(scales=(0.75, 1.0, 1.25),
+                                            flip=True, fuse="stride8")}
+# (b)'s cases: (dtype, setting, layout); "pair": each pair of ranks on its
+# own frame (the 2 x 2 combined mesh, spatial=2: two 2-rank frames),
+# "world": all 4 ranks on one frame (spatial=-1); "pad": the 1050-row frame
+# over the 4 ranks.  f32 without TF32: probabilities within 1e-4, labels
+# equal on >= 99.99% of pixels; bf16: labels on >= 99.8% (two runs of the
+# same case gave 99.932% and 99.995%: cuDNN's bf16 algorithms differ by a
+# strip's shape, and these random weights leave many near-ties; PERF.md)
+MESH_CASES = [(dt, st, lay) for dt in ("float32", "bfloat16")
+              for st in MESH_SETTINGS for lay in ("pair", "world")] + [
+    ("float32", "single", "pad")]
+MESH_TOL = {"float32": dict(prob_abs=1e-4, label_share=0.9999),
+            "bfloat16": dict(prob_abs=None, label_share=0.998)}
+
+
+def mesh_frames():
+    """(two 1024x2048 frames, the 1050x1914 frame), uint8 from
+    ``RandomState(0)``."""
+    rng = np.random.RandomState(0)
+    two = rng.randint(0, 256, (2, *INFER_HW, 3), dtype=np.uint8)
+    return two, rng.randint(0, 256, (1, *MESH_PAD_HW, 3), dtype=np.uint8)
+
+
+def mesh_case_input(layout, d):
+    """The frame (numpy ``[1, H, W, 3]``) data index ``d`` works on."""
+    from dasac_tpu_torch.infer import engine
+
+    two, pad = mesh_frames()
+    if layout == "pad":
+        return engine.pad_to_tile(pad, MESH_RANKS)
+    return two[d:d + 1]
+
+
+def _calls_since(calls0):
+    from dasac_tpu_torch.core import dist
+
+    return {k: dist.CALLS[k] - v for k, v in calls0.items()
+            if k.startswith("exchange")}
+
+
+def run_infer_mesh_one_rank(ce, ce_triton, device, card):
+    """(a) A NCCL world of one in this process: ``run_inference`` over a
+    synthetic 4-frame Cityscapes-val root with the world's group and with
+    none (labels and confusion bit-equal), then ``bench_infer --mode
+    batch`` and ``--mode spatial --sp 1`` through the world."""
+    import glob
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.core import dist
+    from dasac_tpu_torch.data import png
+    from dasac_tpu_torch.infer import engine
+    from dasac_tpu_torch.tools import bench_infer
+    from dasac_tpu_torch.utils.sys_tools import find_free_port
+
+    root = os.path.join(MESH_BASE, "root")
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(find_free_port()),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    out = dict(phase="infer_mesh_one_rank", card=card)
+    write_cityscapes_val(root, card, MESH_FRAMES)
+    t0 = time.perf_counter()
+    dist.init(dist.launch_from_env(env), device)
+    out["setup_s"] = time.perf_counter() - t0
+    out["backend"] = torch.distributed.get_backend()
+    try:
+        state = flagship_state(device)
+        cfg = abn_step_config()
+        ds = engine.InferDataset(root, "val_cityscapes",
+                                 cityscapes_names=True)
+        fresh_cudnn()
+        runs = {}
+        for name, group in (("group", dist.group()), ("plain", None)):
+            calls0 = dict(dist.CALLS)
+            reset_counts(ce, ce_triton)
+            t0 = time.perf_counter()
+            conf = engine.run_inference(
+                state.model, ds, os.path.join(MESH_BASE, name),
+                mean=cfg.mean, std=cfg.std, verbose=False, device=device,
+                group=group)
+            wall = time.perf_counter() - t0
+            got = read_counts(ce, ce_triton, {"nll_fwd": 0, "nll_bwd": 0})[0]
+            if name == "group":
+                launches = got
+            files = sorted(glob.glob(os.path.join(MESH_BASE, name, "*.png")))
+            need(len(files) == MESH_FRAMES, "%s: %d exports" % (name,
+                                                               len(files)))
+            runs[name] = dict(conf=conf, wall_s=wall, labels=[
+                png.read(f).pixels for f in files],
+                calls=_calls_since(calls0))
+        g, p = runs["group"], runs["plain"]
+        need(np.array_equal(g["conf"], p["conf"]) and all(
+            np.array_equal(a, b) for a, b in zip(g["labels"], p["labels"])),
+            "infer_mesh: run_inference in a world of one differs from the "
+            "run with no group")
+        need(not g["calls"]["exchange"], "a world of one exchanged rows")
+        out["run_inference_wall_s"] = {k: r["wall_s"] for k, r in
+                                       runs.items()}
+        out["labels_bit_equal"] = True
+        del state
+        torch.cuda.empty_cache()
+        bench = {}
+        for mode, flags in (("batch", ["--mode", "batch"]),
+                            ("spatial_sp1", ["--mode", "spatial", "--sp",
+                                             "1"])):
+            fresh_cudnn()
+            rec = bench_infer.main([*flags, "--output", "argmax", "--iters",
+                                    "5"], device=device)
+            need(rec["value"] > 0 and rec["world"] == 1
+                 and rec["devices"] == 1 and rec["cudnn_benchmark"],
+                 "bench_infer %s: %s" % (mode, rec))
+            bench[mode] = {k: rec[k] for k in (
+                "latency_ms_per_frame", "mesh", "devices", "world",
+                "transport", "exchanges_per_forward", "peak_allocated_gb")}
+            torch.cuda.empty_cache()
+        out["bench_infer"] = bench
+    finally:
+        dist.destroy()
+        shutil.rmtree(MESH_BASE, ignore_errors=True)
+    log("infer_mesh_one_rank: %s" % json.dumps(out))
+    return launches
+
+
+def mesh_rank(rank, addr, card, t_spawn, device):
+    """(b) One of ``MESH_RANKS`` gloo ranks sharing the card: every case of
+    ``MESH_CASES``, its rows of the probabilities (f32) or labels (bf16)
+    written under ``MESH_BASE`` for the parent to hold against the
+    unsharded forward, with its ms per frame, exchanges and bytes a
+    forward by layer kind, and peak memory."""
+    import torch
+
+    from dasac_tpu_torch.core import dist, mesh
+    from dasac_tpu_torch.infer import engine
+    from dasac_tpu_torch.nn.spatial import Sharded
+
+    start_s = time.time() - t_spawn
+    # this script's settings (``main``), which a new process does not have
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.benchmark = False
+    device = torch.device(device)
+    device = torch.device(device.type, device.index or 0)
+    torch.cuda.set_device(device)
+    t0 = time.perf_counter()
+    dist.init(dist.Launch(addr, MESH_RANKS, rank, rank), device,
+              backend="gloo")
+    # every rank creates every group: the pairs of the 2 x 2 mesh
+    pair = mesh.sp_group(mesh.infer_mesh(MESH_RANKS, None, 2), rank)
+    groups = {"pair": pair, "world": dist.group(), "pad": dist.group()}
+    out = dict(rank=rank, card=card, start_s=start_s,
+               setup_s=time.perf_counter() - t0,
+               transport=dist.transport(pair), cases={})
+    cfg = abn_step_config()
+    try:
+        models = {}
+        for dt, setting, layout in MESH_CASES:
+            dtype = getattr(torch, dt)
+            if dt not in models:
+                models.clear()
+                torch.cuda.empty_cache()
+                models[dt] = flagship_state(device, dtype=dtype).model
+            sharded = Sharded(groups[layout])
+            d = rank // 2 if layout == "pair" else 0
+            frame = torch.from_numpy(mesh_case_input(layout, d)).to(device)
+            fn = engine.make_infer_fn(
+                models[dt], cfg.mean, cfg.std, device=device,
+                sharded=sharded, **MESH_SETTINGS[setting])
+            fn(frame)   # warm-up: cuDNN's choices, the allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier(device, groups[layout])
+            calls0 = dict(dist.CALLS)
+            t0 = time.perf_counter()
+            probs = fn(frame)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            calls = _calls_since(calls0)
+            lo, hi = sharded.own(frame.shape[1])
+            key = "%s_%s_%s" % (dt, setting, layout)
+            torch.save(dict(
+                rows=(lo, hi),
+                labels=probs.argmax(-1).to(torch.uint8).cpu(),
+                probs=probs.cpu() if dt == "float32" else None),
+                os.path.join(MESH_BASE, "%s_rank%d.pt" % (key, rank)))
+            out["cases"][key] = dict(
+                ms_per_frame=ms, rows=[lo, hi], exchanges=calls,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del probs, fn
+    finally:
+        dist.destroy()
+    log("infer_mesh_rank: %s" % json.dumps(out))
+    with open(os.path.join(MESH_BASE, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+
+
+def run_infer_mesh_gloo(device, card):
+    """(b) ``MESH_RANKS`` spawned ranks on the card over gloo
+    (``mesh_rank``), then every case's unsharded forward in this process
+    on the same frames (the padded frame on its padded canvas), held
+    against the ranks' rows assembled."""
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.infer import engine
+    from dasac_tpu_torch.utils.sys_tools import find_free_port
+
+    shutil.rmtree(MESH_BASE, ignore_errors=True)
+    os.makedirs(MESH_BASE)
+    torch.backends.cudnn.benchmark = False
+    cfg = abn_step_config()
+    out = dict(phase="infer_mesh_gloo", card=card, ranks=MESH_RANKS,
+               backend="gloo", cases={})
+    try:
+        t0 = time.time()
+        torch.multiprocessing.spawn(
+            mesh_rank, args=("127.0.0.1:%d" % find_free_port(), card, t0,
+                             str(device)),
+            nprocs=MESH_RANKS, join=True)
+        out["spawn_and_cases_s"] = time.time() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(MESH_BASE, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        models = {}
+        for dt, setting, layout in MESH_CASES:
+            if dt not in models:
+                models.clear()
+                torch.cuda.empty_cache()
+                models[dt] = flagship_state(device,
+                                            dtype=getattr(torch, dt)).model
+            key = "%s_%s_%s" % (dt, setting, layout)
+            fn = engine.make_infer_fn(models[dt], cfg.mean, cfg.std,
+                                      device=device, **MESH_SETTINGS[setting])
+            parts = [torch.load(os.path.join(MESH_BASE, "%s_rank%d.pt"
+                                             % (key, r)), weights_only=True)
+                     for r in range(MESH_RANKS)]
+            frames = [list(range(0, 2)), list(range(2, 4))] \
+                if layout == "pair" else [list(range(MESH_RANKS))]
+            res = dict(card=card,
+                       ms_per_frame=[ranks[r]["cases"][key]["ms_per_frame"]
+                                     for r in range(MESH_RANKS)],
+                       peak_gb=[ranks[r]["cases"][key]["peak_gb"]
+                                for r in range(MESH_RANKS)],
+                       exchanges=[ranks[r]["cases"][key]["exchanges"]
+                                  for r in range(MESH_RANKS)])
+            agree, prob_err = [], 0.0
+            for d, members in enumerate(frames):
+                frame = torch.from_numpy(mesh_case_input(layout, d)).to(
+                    device)
+                ref = fn(frame)
+                if d == 0:   # the same program in one process, warm,
+                    # and its labels against its own first call's
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    again = fn(frame)
+                    torch.cuda.synchronize()
+                    res["unsharded_ms"] = (time.perf_counter() - t0) * 1e3
+                    res["unsharded_repeat_label_agreement"] = float(
+                        (again.argmax(-1) == ref.argmax(-1)).float().mean())
+                    del again
+                rows = [tuple(parts[r]["rows"]) for r in members]
+                need(rows[0][0] == 0 and rows[-1][1] == frame.shape[1]
+                     and all(a[1] == b[0] for a, b in zip(rows, rows[1:])),
+                     "%s: the ranks' rows %s do not tile the frame"
+                     % (key, rows))
+                labels = torch.cat([parts[r]["labels"] for r in members],
+                                   1).to(device)
+                if layout == "pad":   # the frame's rows of the canvas
+                    ref, labels = (ref[:, :MESH_PAD_HW[0]],
+                                   labels[:, :MESH_PAD_HW[0]])
+                agree.append(float((labels == ref.argmax(-1).to(
+                    torch.uint8)).float().mean()))
+                if dt == "float32":
+                    probs = torch.cat([parts[r]["probs"] for r in members],
+                                      1).to(device)
+                    if layout == "pad":
+                        probs = probs[:, :MESH_PAD_HW[0]]
+                    prob_err = max(prob_err, float(
+                        (probs - ref).abs().max()))
+                del ref, labels
+            tol = MESH_TOL[dt]
+            res.update(label_agreement=agree, tol=tol,
+                       prob_max_abs_err=prob_err if dt == "float32"
+                       else None)
+            out["cases"][key] = res
+            log("infer_mesh_gloo %s: %s" % (key, json.dumps(res)))
+            need(min(agree) >= tol["label_share"],
+                 "%s: labels agree on %s of pixels, want >= %s"
+                 % (key, agree, tol["label_share"]))
+            need(tol["prob_abs"] is None or prob_err <= tol["prob_abs"],
+                 "%s: probabilities differ by %r > %r"
+                 % (key, prob_err, tol["prob_abs"]))
+            need(all(e["exchange"] > 0 and e["exchange_bytes"] > 0
+                     for e in res["exchanges"]),
+                 "%s: a rank exchanged no rows" % key)
+            del parts, fn
+            torch.cuda.empty_cache()
+        out["transport"] = sorted({r["transport"] for r in ranks})
+        out["rank_setup_s"] = [r["setup_s"] for r in ranks]
+        out["rank_start_s"] = [r["start_s"] for r in ranks]
+        log("infer_mesh_gloo: %s" % json.dumps(out))
+    finally:
+        shutil.rmtree(MESH_BASE, ignore_errors=True)
+    return out
+
+
+def run_infer_mesh(ce, ce_triton, device, card):
+    """Phase 18: (a) the NCCL world of one (``run_infer_mesh_one_rank``);
+    (b) ``MESH_RANKS`` gloo ranks on the card (``run_infer_mesh_gloo``).
+    Returns the CE launches of (a)'s ``run_inference`` runs (none:
+    inference runs no CE kernel, and ``read_counts`` fails on any)."""
+    launches = run_infer_mesh_one_rank(ce, ce_triton, device, card)
+    run_infer_mesh_gloo(device, card)
+    return launches
+
+
 def main(argv=()):
     import argparse
 
@@ -2911,6 +3270,10 @@ def main(argv=()):
         help="instead of the phases, run the flagship ABN step for %d steps "
              "at 1, 0.1, 0.01 and 0.001 times the recipe's learning rates "
              "and print the losses" % N_STEPS)
+    parser.add_argument(
+        "--infer-mesh-only", action="store_true",
+        help="instead of the phases, run phase 18 (inference over a world "
+             "of ranks) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2934,6 +3297,10 @@ def main(argv=()):
     if args.abn_lr_witness:
         torch.backends.cudnn.benchmark = True
         run_abn_lr_witness(device, card)
+        return 0
+    if args.infer_mesh_only:
+        run_infer_mesh(ce, ce_triton, device, card)
+        log("infer_mesh: %.1f s" % (time.perf_counter() - t_start))
         return 0
 
     phase_s, lap_t = {}, [t_start]
@@ -2995,6 +3362,8 @@ def main(argv=()):
     lap("ddp")
     recipe_launches = run_recipe(ce, ce_triton, device, card)
     lap("recipe")
+    mesh_launches = run_infer_mesh(ce, ce_triton, device, card)
+    lap("infer_mesh")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -3048,6 +3417,9 @@ def main(argv=()):
             row["launches_recipe"] = {
                 st: (got[k] if route == "cuda" else 0)
                 for st, got in recipe_launches.items()}
+            # inference over a world (phase 18): none
+            row["launches_infer_mesh"] = (mesh_launches[k]
+                                          if route == "cuda" else 0)
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

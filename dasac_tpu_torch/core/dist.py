@@ -15,7 +15,11 @@ of ``torch.distributed``, so the single-device path is unchanged.
 
 ``CALLS`` counts the collectives by kind (``bn``/``bn_grad``: the
 cross-replica BN statistics forward and backward), for the smoke's
-per-step figures.
+per-step figures, and the row-slab exchanges of height-sharded inference
+(:func:`exchange_rows`): ``exchange`` rounds this rank took part in and
+``exchange_bytes`` it sent, in all and by layer kind
+(``exchange_<kind>``, ``exchange_bytes_<kind>``, kinds
+``EXCHANGE_KINDS``).
 """
 
 import datetime
@@ -30,7 +34,11 @@ DEFAULT_PORT = "12355"
 # panels, so the ranks drift apart by minutes at most)
 TIMEOUT = datetime.timedelta(minutes=30)
 
-CALLS = {"bn": 0, "bn_grad": 0, "mean": 0, "sum": 0, "broadcast": 0}
+EXCHANGE_KINDS = ("conv", "pool", "resize", "gather")
+CALLS = {"bn": 0, "bn_grad": 0, "mean": 0, "sum": 0, "broadcast": 0,
+         "exchange": 0, "exchange_bytes": 0,
+         **{"exchange_%s" % k: 0 for k in EXCHANGE_KINDS},
+         **{"exchange_bytes_%s" % k: 0 for k in EXCHANGE_KINDS}}
 
 
 class Launch(NamedTuple):
@@ -269,3 +277,71 @@ def auto_mesh_size(available, batch_size, num_groups):
     while n > 1 and (batch_size % n or num_groups % n):
         n -= 1
     return max(1, n)
+
+
+def _overlap(a, b):
+    lo, hi = max(a[0], b[0]), min(a[1], b[1])
+    return (lo, hi) if lo < hi else None
+
+
+def transport(group):
+    """How :func:`exchange_rows` moves a device tensor over ``group``:
+    ``"direct"`` on NCCL, ``"host"`` (staged through host memory) on
+    gloo, which sends CPU tensors only.  The group's backend decides."""
+    return "direct" if tdist.get_backend(group) == "nccl" else "host"
+
+
+def exchange_rows(x, dim, have, need, group, kind):
+    """The row-slab exchange of height-sharded inference.
+
+    Rank ``t`` of ``group`` holds the global rows ``have[t] = (lo, hi)``
+    of a tensor along ``dim`` (``x``: this rank's) and wants the rows
+    ``need[t]``, which lie inside the rows the group holds (empty when
+    ``lo >= hi``).  Every rank derives the same plan from ``have`` and
+    ``need``: rank ``t`` sends rank ``u`` the overlap of ``have[t]`` and
+    ``need[u]``, nothing when it is empty, all in one batched
+    point-to-point round (``batch_isend_irecv``) that a rank with nothing
+    to move skips.  Device tensors go directly on NCCL and through host
+    memory on gloo (:func:`transport`).  Returns this rank's ``need`` rows,
+    in the memory format of ``x`` (the wire carries contiguous tensors,
+    which gloo requires); a failed transfer raises."""
+    me, n = group.rank(), group.size()
+    staged = x.device.type != "cpu" and transport(group) == "host"
+    wire = torch.device("cpu") if staged else x.device
+    lo, hi = have[me]
+    pieces, ops, sent = [], [], 0
+    for t in range(n):
+        if t == me:
+            mine = _overlap(have[me], need[me])
+            if mine:
+                pieces.append(x.narrow(dim, mine[0] - lo, mine[1] - mine[0]))
+            continue
+        peer = tdist.get_global_rank(group, t)
+        got = _overlap(have[t], need[me])
+        if got:
+            shape = list(x.shape)
+            shape[dim] = got[1] - got[0]
+            buf = torch.empty(shape, dtype=x.dtype, device=wire)
+            ops.append(tdist.P2POp(tdist.irecv, buf, peer, group))
+            pieces.append(buf)
+        give = _overlap(have[me], need[t])
+        if give:
+            buf = x.narrow(dim, give[0] - lo,
+                           give[1] - give[0]).contiguous().to(wire)
+            ops.append(tdist.P2POp(tdist.isend, buf, peer, group))
+            sent += buf.numel() * buf.element_size()
+    if ops:
+        for work in tdist.batch_isend_irecv(ops):
+            work.wait()
+        for key, v in (("exchange", 1), ("exchange_bytes", sent)):
+            CALLS[key] += v
+            CALLS["%s_%s" % (key, kind)] += v
+    if not pieces:
+        return x.narrow(dim, 0, 0)
+    if len(pieces) == 1 and not ops:
+        return pieces[0]
+    out = torch.cat([p.to(x.device) for p in pieces], dim)
+    if (x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last)):
+        out = out.contiguous(memory_format=torch.channels_last)
+    return out

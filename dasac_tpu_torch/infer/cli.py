@@ -1,5 +1,5 @@
 """Inference and export entry point (counterpart of ``infer_val.py``): the
-same flags, one process on one GPU.
+same flags, one process per GPU.
 
     python -m dasac_tpu_torch.infer.cli \\
         --cfg configs/deeplabv2_resnet101_train.yaml --dataloader cityscapes \\
@@ -9,10 +9,25 @@ same flags, one process on one GPU.
 The snapshot is read with the port's ``Checkpointer`` (the reference
 ``.pth`` container; its ``opt`` is not read).  ``--teacher`` runs the
 snapshot's EMA teacher, or the initial weights' copy where the snapshot has
-none.  ``--spatial`` with N != 0 needs more than one GPU and raises
-(ROADMAP Queue 1 item 10).  From Python, ``main(argv, device="cpu")`` runs
-on the CPU; with ``device=None`` it runs on the GPU and raises before
-anything else when there is none.
+none.  From Python, ``main(argv, device="cpu")`` runs on the CPU; with
+``device=None`` it runs on the GPU and raises before anything else when
+there is none.
+
+Several GPUs, one process each (``infer_val.py`` uses every local device):
+
+  * on a host with more than one visible GPU, ``main`` spawns one process
+    per GPU (NCCL); with one GPU, or on the CPU, it runs in this process;
+  * ``--multiprocessing-distributed`` joins a world the environment
+    describes (``torchrun --nproc-per-node N -m dasac_tpu_torch.infer.cli
+    --multiprocessing-distributed ...``), ``--world-size N --rank R
+    --dist-url tcp://host:port`` one given by flags
+    (``core/opts.launch_plan``); on the CPU a world exists only so;
+  * ``--batch`` frames split over the ranks (default one a rank),
+    ``--spatial`` shards each frame's height over all ranks, ``--spatial
+    N`` over N ranks a frame with world/N frames side by side
+    (``engine.run_inference``); a layout the world cannot make raises
+    ``ValueError``.  Rank 0 prints the IoUs; each frame's first ``sp``
+    rank writes its exports.
 """
 
 import argparse
@@ -22,16 +37,19 @@ import sys
 import numpy as np
 import torch
 
+from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.core.config import (cfg, cfg_from_file, cfg_from_list,
                                          reset_cfg)
 from dasac_tpu_torch.core.device import autotune_convolutions, resolve_device
-from dasac_tpu_torch.core.opts import add_global_arguments
+from dasac_tpu_torch.core.mesh import infer_mesh
+from dasac_tpu_torch.core.opts import add_global_arguments, launch_plan
 from dasac_tpu_torch.core.state import create_train_state
 from dasac_tpu_torch.data.category import get_class_names, get_num_classes
 from dasac_tpu_torch.infer.engine import InferDataset, run_inference
 from dasac_tpu_torch.nn.factory import build_model
 from dasac_tpu_torch.train.checkpoints import Checkpointer
 from dasac_tpu_torch.train.metrics import summarise
+from dasac_tpu_torch.utils.sys_tools import find_free_port
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -57,32 +75,86 @@ def parse_args(argv):
                         help="images per forward (default 1)")
     parser.add_argument("--spatial", type=int, nargs="?", const=-1,
                         default=0,
-                        help="height-sharded inference over several GPUs: "
-                             "not ported (any value but 0 raises)")
+                        help="shard each image's HEIGHT over the GPUs: "
+                             "bare flag = all GPUs on one frame; N = "
+                             "N GPUs a frame, GPUs/N frames in parallel "
+                             "(0 = split batches over the GPUs)")
     return parser.parse_args(argv)
 
 
-def main(argv=None, device=None):
-    """Infer and export as ``infer_val.py`` does; prints the per-class IoU
-    and the mIoU where the list has masks, and returns the int64 ``[C, C]``
-    confusion (numpy) or None."""
-    device = resolve_device(device)
-    args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.spatial:
-        raise NotImplementedError(
-            "--spatial needs more than one GPU; multi-GPU inference is not "
-            "ported yet (ROADMAP Queue 1 item 10)")
-    if not args.resume:
-        raise ValueError("--resume <snapshot .pth> is required")
-    if not args.mask_output_dir:
-        raise ValueError("--mask-output-dir is required")
+def _load_config(args):
     # the config is process-global: start every run from the defaults
     reset_cfg()
     cfg_from_file(args.cfg_file)
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs)
-    autotune_convolutions(device)
 
+
+def main(argv=None, device=None):
+    """Infer and export as ``infer_val.py`` does; prints the per-class IoU
+    and the mIoU where the list has masks, and returns the int64 ``[C, C]``
+    confusion (numpy) or None.  On a host with several GPUs it spawns one
+    process per GPU and returns rank 0's confusion."""
+    device = resolve_device(device)
+    argv = argv if argv is not None else sys.argv[1:]
+    args = parse_args(argv)
+    if not args.resume:
+        raise ValueError("--resume <snapshot .pth> is required")
+    if not args.mask_output_dir:
+        raise ValueError("--mask-output-dir is required")
+    launch = launch_plan(args, os.environ)
+    _load_config(args)
+    if launch is not None:
+        world = launch.world_size
+    else:
+        world = torch.cuda.device_count() if device.type == "cuda" else 1
+    # the layout must exist before anything starts
+    infer_mesh(world, args.batch or None, args.spatial)
+    if launch is None and world > 1:
+        return spawn(world, argv)
+    return run(args, device, launch)
+
+
+def spawn(n, argv):
+    """One process per GPU of this host, each running ``argv`` as a rank of
+    a world of ``n``; returns rank 0's confusion when all have finished,
+    and raises (with the failing rank's traceback) when one fails."""
+    addr = "127.0.0.1:%d" % find_free_port()
+    print("Spawning {} processes (rendezvous {})".format(n, addr))
+    result = torch.multiprocessing.get_context("spawn").SimpleQueue()
+    torch.multiprocessing.spawn(_rank_main, args=(n, addr, argv, result),
+                                nprocs=n, join=True)
+    # rank 0 put its (small) confusion before it ended
+    return result.get()
+
+
+def _rank_main(local_rank, n, addr, argv, result):
+    conf = run(parse_args(argv), torch.device("cuda"),
+               dist.Launch(addr, n, local_rank, local_rank))
+    if local_rank == 0:
+        result.put(conf)
+
+
+def run(args, device, launch=None):
+    """Infer in this process, joining ``launch``'s world first when given
+    (``LOCAL_RANK`` = ``launch.local_rank`` picks the GPU); the world is
+    left at the end.  Rank 0 prints the IoUs."""
+    if launch is not None:
+        if device.type == "cuda":
+            torch.cuda.set_device(launch.local_rank)
+            device = torch.device("cuda", launch.local_rank)
+        dist.init(launch, device)
+    try:
+        _load_config(args)
+        autotune_convolutions(device)
+        conf = _infer(args, device)
+    finally:
+        if launch is not None:
+            dist.destroy()
+    return conf
+
+
+def _infer(args, device):
     num_classes = get_num_classes()
     model = build_model(cfg.MODEL.ARCH, num_classes,
                         dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE], device=device,
@@ -107,9 +179,10 @@ def main(argv=None, device=None):
         std=tuple(cfg.DATASET.STD), num_classes=num_classes,
         scales=tuple(args.scales), flip=args.flip, save_raw=args.save_raw,
         vis=args.vis, workers=args.workers or 4,
-        batch_size=args.batch or None, fuse=args.fuse, device=device)
+        batch_size=args.batch or None, spatial=args.spatial, fuse=args.fuse,
+        device=device, group=dist.group())
 
-    if conf is not None:
+    if conf is not None and dist.is_main():
         iou, _, _ = summarise(conf)
         keep = [i for i in range(num_classes)
                 if i not in set(cfg.VAL.IGNORE_CLASS)]

@@ -8,11 +8,18 @@
     computes, and VGG's plain floor-mode 2x2 max pooling;
   * half-pixel linear resize, antialiased when it shrinks (the counterpart
     of ``jax.image.resize(..., "linear")``).
+
+Under a height-sharded frame (``nn/spatial.py``) the resize and the pools
+compute this rank's output rows from the rows they fetch; the half-pixel
+resize runs on whole frames only (the inference program applies it before
+the frame is sharded).
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dasac_tpu_torch.nn import spatial
 
 
 def _linear_indices_weights(in_size, out_size):
@@ -47,16 +54,37 @@ def resize_bilinear_align_corners(x, size, compute_dtype=torch.float32):
         NHWC-contiguous [B, out_h, out_w, C] tensor, same dtype as ``x``.
     """
     out_h, out_w = int(size[0]), int(size[1])
+    ctx = spatial.current()
     b, in_h, in_w, c = x.shape
+    if ctx is not None:
+        in_h = ctx.rows(x, 1)
     if (in_h, in_w) == (out_h, out_w):
         return x
     orig_dtype = x.dtype
-    mh = torch.from_numpy(_linear_matrix(in_h, out_h)).to(x.device, compute_dtype)
+    mh = _linear_matrix(in_h, out_h)
+    if ctx is not None:
+        # this rank's output rows read the input rows from the first tap
+        # of its first row to the second tap of its last
+        i0, i1, _ = _linear_indices_weights(in_h, out_h)
+
+        def need(t):
+            lo, hi = spatial.split(out_h, ctx.n, t)
+            return (int(i0[lo]), int(i1[hi - 1]) + 1) if lo < hi else (0, 0)
+
+        needs = [need(t) for t in range(ctx.n)]
+        x = ctx.fetch(x, 1, in_h, needs, 0.0, "resize")
+        (lo, hi), (r0, r1) = ctx.own(out_h), needs[ctx.s]
+        mh, in_h, out_rows = mh[lo:hi, r0:r1], r1 - r0, hi - lo
+    else:
+        out_rows = out_h
+    mh = torch.from_numpy(np.ascontiguousarray(mh)).to(x.device,
+                                                        compute_dtype)
     mw = torch.from_numpy(_linear_matrix(in_w, out_w)).to(x.device, compute_dtype)
     xf = x.to(compute_dtype).reshape(b, in_h, in_w * c)
     xf = torch.matmul(mh, xf)                                # [B, oh, W*C]
-    xf = torch.matmul(mw, xf.view(b * out_h, in_w, c))       # [B*oh, ow, C]
-    return xf.view(b, out_h, out_w, c).to(orig_dtype)
+    xf = torch.matmul(mw, xf.view(b * out_rows, in_w, c))    # [B*oh, ow, C]
+    y = xf.view(b, out_rows, out_w, c).to(orig_dtype)
+    return y if ctx is None else ctx.record(y, 1, out_h)
 
 
 def max_pool_ceil(x, window=3, stride=2, padding=1):
@@ -66,7 +94,10 @@ def max_pool_ceil(x, window=3, stride=2, padding=1):
     up to the extent every window needs, as the JAX version does, so no
     window that starts in the right padding is dropped.
     """
+    ctx = spatial.current()
     h, w = x.shape[-2], x.shape[-1]
+    if ctx is not None:
+        h = ctx.rows(x, 2)   # the ceil-mode bottom pad is the frame's
 
     def _out_size(s):
         return int(np.ceil((s + 2 * padding - window) / stride)) + 1
@@ -74,14 +105,37 @@ def max_pool_ceil(x, window=3, stride=2, padding=1):
     oh, ow = _out_size(h), _out_size(w)
     pad_h_hi = (oh - 1) * stride + window - h - padding
     pad_w_hi = (ow - 1) * stride + window - w - padding
-    xp = F.pad(x, (padding, pad_w_hi, padding, pad_h_hi), value=float("-inf"))
-    return F.max_pool2d(xp, window, stride)
+    if ctx is None:
+        xp = F.pad(x, (padding, pad_w_hi, padding, pad_h_hi),
+                   value=float("-inf"))
+        return F.max_pool2d(xp, window, stride)
+    x = ctx.window(x, 2, h, oh, window, stride, padding, float("-inf"),
+                   "pool")
+    return _pool_strip(ctx, F.pad(x, (padding, pad_w_hi),
+                                  value=float("-inf")), window, stride, oh)
 
 
 def max_pool(x, window=2, stride=2):
     """Plain VALID max pool (VGG-style, floor mode, no padding) on an
     NCHW-shaped tensor (any memory format)."""
-    return F.max_pool2d(x, window, stride)
+    ctx = spatial.current()
+    if ctx is None:
+        return F.max_pool2d(x, window, stride)
+    h = ctx.rows(x, 2)
+    oh = (h - window) // stride + 1
+    x = ctx.window(x, 2, h, oh, window, stride, 0, float("-inf"), "pool")
+    return _pool_strip(ctx, x, window, stride, oh)
+
+
+def _pool_strip(ctx, x, window, stride, oh):
+    """Max pool of this rank's input rows ``x`` (already padded) into its
+    share of ``oh`` output rows."""
+    if x.shape[2] == 0:   # this rank owns no output row
+        y = x.new_empty((*x.shape[:2], 0,
+                         (x.shape[3] - window) // stride + 1))
+    else:
+        y = F.max_pool2d(x, window, stride)
+    return ctx.record(y, 2, oh)
 
 
 def resize_linear(x, hw):
@@ -92,6 +146,9 @@ def resize_linear(x, hw):
     by ``F.interpolate(mode="bilinear", antialias=True)`` on an NCHW view
     of the same memory; returns NHWC."""
     out_h, out_w = int(hw[0]), int(hw[1])
+    if spatial.current() is not None:
+        raise RuntimeError("resize_linear runs on whole frames, before a "
+                           "frame's height is sharded")
     if (x.shape[1], x.shape[2]) == (out_h, out_w):
         return x
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),

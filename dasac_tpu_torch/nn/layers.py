@@ -23,13 +23,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from dasac_tpu_torch.core import dist
+from dasac_tpu_torch.nn import spatial
 
 
 class Conv2d(nn.Module):
     """2-D convolution; weight OIHW f32, computed in ``dtype``.
 
     ``padding`` is an int (symmetric) or ``"same"`` (flax/XLA SAME: the odd
-    pixel of padding goes after).
+    pixel of padding goes after).  Under a height-sharded frame
+    (``nn/spatial.py``) it computes this rank's output rows.
     """
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, padding=0,
@@ -54,21 +56,52 @@ class Conv2d(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def _pads(self, size):
+        """``(before, after)`` padding of a side of ``size`` pixels."""
+        if self.padding != "same":
+            return self.padding, self.padding
+        out = -(-size // self.stride)
+        total = max((out - 1) * self.stride
+                    + (self.kernel - 1) * self.dilation + 1 - size, 0)
+        return total // 2, total - total // 2
+
     def forward(self, x):
+        ctx = spatial.current()
+        if ctx is not None:
+            return self._forward_strip(x, ctx)
         pad = self.padding
         if pad == "same":
-            pads = []
-            for size in (x.shape[-1], x.shape[-2]):  # F.pad order: W then H
-                out = -(-size // self.stride)
-                total = max((out - 1) * self.stride
-                            + (self.kernel - 1) * self.dilation + 1 - size, 0)
-                pads += [total // 2, total - total // 2]
-            x = F.pad(x, pads) if any(pads) else x
+            pads = [*self._pads(x.shape[-1]), *self._pads(x.shape[-2])]
+            x = F.pad(x, pads) if any(pads) else x  # F.pad order: W then H
             pad = 0
         w = self.weight.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), w, b, self.stride, pad,
                         self.dilation)
+
+    def _forward_strip(self, x, ctx):
+        """This rank's output rows of a height-sharded frame
+        (``nn/spatial.py``): the H padding comes from the frame's height,
+        the rows from ``ctx.window``; W is padded as above."""
+        h, w_in = ctx.rows(x, 2), x.shape[-1]
+        span = (self.kernel - 1) * self.dilation + 1
+        top, bottom = self._pads(h)
+        left, right = self._pads(w_in)
+        h_out = (h + top + bottom - span) // self.stride + 1
+        x = ctx.window(x, 2, h, h_out, span, self.stride, top, 0.0, "conv")
+        w = self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        if x.shape[2] == 0:   # this rank owns no output row
+            w_out = (w_in + left + right - span) // self.stride + 1
+            y = x.new_empty((x.shape[0], w.shape[0], 0, w_out),
+                            dtype=self.dtype)
+        elif left == right:
+            y = F.conv2d(x.to(self.dtype), w, b, self.stride, (0, left),
+                         self.dilation)
+        else:
+            y = F.conv2d(F.pad(x.to(self.dtype), (left, right)), w, b,
+                         self.stride, 0, self.dilation)
+        return ctx.record(y, 2, h_out)
 
 
 class SyncBatchNorm(nn.Module):
@@ -102,6 +135,10 @@ class SyncBatchNorm(nn.Module):
     def forward(self, x, use_running_average):
         if use_running_average:
             mean, var = self.running_mean, self.running_var
+        elif spatial.current() is not None:
+            raise NotImplementedError(
+                "batch statistics over a height-sharded frame need a "
+                "reduction over its ranks, which is not ported")
         else:
             xf = x.float()
             dims = (0, 2, 3)

@@ -25,6 +25,7 @@ from torch import nn
 
 from dasac_tpu_torch.nn.functional import (max_pool_ceil,
                                            resize_bilinear_align_corners)
+from dasac_tpu_torch.nn import spatial
 from dasac_tpu_torch.nn.layers import Conv2d, SyncBatchNorm
 
 _INIT_STD = 0.01  # reference init for convs, normal(0, 0.01)
@@ -146,7 +147,7 @@ class DeepLabV2ResNet101(nn.Module):
                 upsample=True):
         """``upsample=False`` returns ``(logits_s8, None)`` (inference on
         the stride-8 grid)."""
-        h, w = x.shape[1], x.shape[2]
+        h, w = spatial.frame_hw(x)
         feats = self.model(x.to(self.dtype).permute(0, 3, 1, 2), update_stats)
         logits = self.model.layer5(feats).float().permute(0, 2, 3, 1)
         if not upsample:

@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from dasac_tpu_torch.nn.functional import resize_bilinear_align_corners
+from dasac_tpu_torch.nn import spatial
 from dasac_tpu_torch.nn.layers import (Conv2d, SyncBatchNorm,
                                        apply_channel_dropout,
                                        sample_channel_dropout_draws)
@@ -31,7 +32,7 @@ class TinySeg(nn.Module):
     def forward(self, x, train=False, update_stats=False, generator=None,
                 upsample=True):
         """``upsample=False`` returns ``(logits, None)``."""
-        h, w = x.shape[1], x.shape[2]
+        h, w = spatial.frame_hw(x)
         y = x.permute(0, 3, 1, 2)
         y = torch.relu(self.bn_a(self.conv_a(y), not update_stats))
         y = torch.relu(self.bn_b(self.conv_b(y), not update_stats))

@@ -30,6 +30,7 @@ from torch import nn
 
 from dasac_tpu_torch.nn.functional import (max_pool,
                                            resize_bilinear_align_corners)
+from dasac_tpu_torch.nn import spatial
 from dasac_tpu_torch.nn.layers import (Conv2d, SyncBatchNorm,
                                        apply_channel_dropout,
                                        sample_channel_dropout_draws)
@@ -135,7 +136,7 @@ class DeepLabV2VGG16(nn.Module):
     def forward(self, x, train=False, update_stats=False, generator=None,
                 upsample=True):
         """``upsample=False`` returns ``(logits, None)``."""
-        h, w = x.shape[1], x.shape[2]
+        h, w = spatial.frame_hw(x)
         f = self.features
         y = f(x.to(self.dtype).permute(0, 3, 1, 2), update_stats)
         y = torch.relu(getattr(f, "42")(y))
@@ -181,7 +182,7 @@ class VGG16FCN8s(nn.Module):
     def forward(self, x, train=False, update_stats=False, generator=None,
                 upsample=True):
         """``upsample=False`` returns ``(logits, None)``."""
-        h, w = x.shape[1], x.shape[2]
+        h, w = spatial.frame_hw(x)
         frozen = not update_stats
         pool3 = self.block1(x.to(self.dtype).permute(0, 3, 1, 2),
                             update_stats)
@@ -199,6 +200,7 @@ class VGG16FCN8s(nn.Module):
             # resized to the skip's grid, not x2: the reference's x2
             # assumes sizes divisible by 32 and is the same there
             s = resize_bilinear_align_corners(
-                s.permute(0, 2, 3, 1), skip.shape[-2:]).permute(0, 3, 1, 2)
+                s.permute(0, 2, 3, 1),
+                spatial.frame_hw(skip, 2)).permute(0, 3, 1, 2)
             s = s + skip
         return _finish(s, h, w, upsample)

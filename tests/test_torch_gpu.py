@@ -20,7 +20,13 @@ native route.  Data parallel: the ABN frames step (shallow r101, f32,
 64x64, live BN) in a NCCL world of one rank equals, bit for bit, the same
 step with no process group (cuDNN's deterministic algorithms on); two
 gloo ranks sharing the card run the tiny arch's ABN frames step on their
-shards and end with bit-equal states.
+shards and end with bit-equal states, and two more split one frame's
+height through the shallow r101 (``nn/spatial.py``; host-staged
+exchanges), their rows of the probabilities within 1e-4 of the unsharded
+forward's in f32 without TF32.  On a host with several cards, a NCCL
+world of one rank a card does the same with device-to-device exchanges,
+and the infer CLI spawns a rank per card (``--spatial 2``) and exports
+what one process exports.
 
 Without a card every test here skips.  Tolerances, absolute: NLL 1e-4 (a
 few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
@@ -30,6 +36,7 @@ few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,6 +44,7 @@ from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.core.state import create_train_state
 from dasac_tpu_torch.infer import engine
 from dasac_tpu_torch.nn.factory import build_model
+from dasac_tpu_torch.nn.spatial import Sharded
 from dasac_tpu_torch.ops import ce, ce_triton
 from dasac_tpu_torch.sac import core
 from dasac_tpu_torch.train import optim, steps
@@ -513,3 +521,137 @@ def test_two_gloo_ranks_on_one_card_end_equal(cuda, tmp_path):
     assert out[0]["equal"] == out[1]["equal"] > 0
     # the losses are averaged over the ranks: the same on both
     assert out[0]["losses"] == out[1]["losses"]
+
+
+def _spatial_rank(rank, addr, out_dir):
+    """One of two gloo ranks sharing the card, each with half the rows of
+    one frame through the shallow r101."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init(dist.Launch(addr, 2, rank, rank), dev, backend="gloo")
+    try:
+        model = build_model("deeplabv2_resnet101", 19, device=dev,
+                            generator=torch.Generator().manual_seed(0),
+                            layers=(1, 1, 1, 1))
+        g = torch.Generator(device=dev).manual_seed(3)
+        frame = torch.randint(0, 256, (1, 136, 192, 3), generator=g,
+                              device=dev, dtype=torch.uint8)
+        sharded = Sharded(dist.group())
+        calls = dict(dist.CALLS)
+        got = engine.make_infer_fn(model, (0.5,) * 3, (0.25,) * 3,
+                                   device=dev, sharded=sharded)(frame)
+        calls = {k: dist.CALLS[k] - v for k, v in calls.items()}
+        ref = engine.make_infer_fn(model, (0.5,) * 3, (0.25,) * 3,
+                                   device=dev)(frame)
+        lo, hi = sharded.own(136)
+        err = float((got - ref[:, lo:hi]).abs().max())
+        transport = dist.transport(dist.group())
+    finally:
+        dist.destroy()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(dict(err=err, rows=[lo, hi], calls=calls,
+                       transport=transport), f)
+
+
+def test_two_gloo_ranks_split_a_frame_of_the_shallow_r101(cuda, tmp_path):
+    torch.multiprocessing.spawn(
+        _spatial_rank, args=("127.0.0.1:%d" % find_free_port(),
+                             str(tmp_path)), nprocs=2, join=True)
+    out = [json.loads((tmp_path / ("rank%d.json" % r)).read_text())
+           for r in range(2)]
+    assert [o["rows"] for o in out] == [[0, 68], [68, 136]]
+    for o in out:
+        assert o["err"] <= 1e-4, o
+        assert o["transport"] == "host"
+        assert o["calls"]["exchange_conv"] > 0, o["calls"]
+
+
+def _nccl_rank(rank, world, addr, out_dir):
+    """Rank ``rank`` of a NCCL world with one card each: one frame's
+    height over all of them through the shallow r101."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init(dist.Launch(addr, world, rank, rank), dev)
+    try:
+        model = build_model("deeplabv2_resnet101", 19, device=dev,
+                            generator=torch.Generator().manual_seed(0),
+                            layers=(1, 1, 1, 1))
+        frame = torch.from_numpy(np.random.RandomState(3).randint(
+            0, 256, (1, 136, 192, 3), dtype=np.uint8)).to(dev)
+        sharded = Sharded(dist.group())
+        calls = dict(dist.CALLS)
+        got = engine.make_infer_fn(model, (0.5,) * 3, (0.25,) * 3,
+                                   device=dev, sharded=sharded)(frame)
+        calls = {k: dist.CALLS[k] - v for k, v in calls.items()}
+        ref = engine.make_infer_fn(model, (0.5,) * 3, (0.25,) * 3,
+                                   device=dev)(frame)
+        lo, hi = sharded.own(136)
+        err = float((got - ref[:, lo:hi]).abs().max())
+        transport = dist.transport(dist.group())
+    finally:
+        dist.destroy()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(dict(err=err, rows=[lo, hi], calls=calls,
+                       transport=transport), f)
+
+
+def test_nccl_ranks_split_a_frame_over_every_card(cuda, tmp_path):
+    """Several cards only: the rows travel by NCCL's point-to-point calls,
+    device to device."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.multiprocessing.spawn(
+        _nccl_rank, args=(n, "127.0.0.1:%d" % find_free_port(),
+                          str(tmp_path)), nprocs=n, join=True)
+    out = [json.loads((tmp_path / ("rank%d.json" % r)).read_text())
+           for r in range(n)]
+    assert [o["rows"] for o in out] == [
+        [r * 136 // n, (r + 1) * 136 // n] for r in range(n)]
+    for o in out:
+        assert o["err"] <= 1e-4, o
+        assert o["transport"] == "direct"
+        assert o["calls"]["exchange_conv"] > 0, o["calls"]
+
+
+def test_infer_cli_spawns_one_rank_per_card(cuda, tmp_path, monkeypatch):
+    """Several cards only: the infer CLI spawns a rank per card, each
+    frame's height over 2 of them, and exports what ``run_inference`` in
+    this process on one card exports (both with TF32 on, the CLI's
+    default; the ranks autotune cuDNN, this process does not, so labels
+    may differ where the top two classes are within TF32's rounding)."""
+    from dasac_tpu_torch.data import png
+    from dasac_tpu_torch.data.synth import make_synthetic_root
+    from dasac_tpu_torch.infer import cli
+    from dasac_tpu_torch.train.checkpoints import Checkpointer
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    root = make_synthetic_root(str(tmp_path / "root"), hw=(64, 96),
+                               n_val=4)
+    model = build_model("tiny", 19, device="cpu",
+                        generator=torch.Generator().manual_seed(3))
+    snap = Checkpointer(str(tmp_path / "snap")).save_latest(
+        create_train_state(model, optim.build_optimizer(_MC, "tiny", model),
+                           19, device="cpu"), 0.0, 0)
+    conf = cli.main(["--cfg", "configs/tiny_cpu.yaml", "--resume", snap,
+                     "--infer-list", "val_cityscapes", "--mask-output-dir",
+                     str(tmp_path / "many"), "--spatial", "2", "--set",
+                     "DATASET.ROOT", root])
+    ds = engine.InferDataset(root, "val_cityscapes")
+    one = engine.run_inference(model.to(cuda), ds, str(tmp_path / "one"),
+                               mean=(0.485, 0.456, 0.406),
+                               std=(0.229, 0.224, 0.225), verbose=False,
+                               device=cuda)
+    assert conf.sum() == one.sum() > 0
+    for i in range(len(ds)):
+        a, b = (png.read(str(tmp_path / d / (ds.name(i) + ".png"))).pixels
+                for d in ("many", "one"))
+        assert (a == b).mean() >= 0.99, ds.name(i)

@@ -71,7 +71,7 @@ def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
                  "data/id_mappers.py", "data/png16.py",
                  "tools/convert_train_ids.py", "tools/make_split_lists.py",
                  "tools/check_dataset.py", "tools/pack_dataset.py",
-                 "tools/recipe.py"):
+                 "tools/recipe.py", "core/mesh.py", "nn/spatial.py"):
         assert REPO / "dasac_tpu_torch" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}
@@ -156,7 +156,20 @@ def test_cudnn_autotuning_is_set_for_the_card_only(monkeypatch):
 
 
 def test_bench_infer_spatial_raises_naming_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """Spatial mode (ROADMAP item 10) is ported: a layout the world cannot
+    make raises ``ValueError`` naming the world and N, a height that does
+    not tile the ranks of a frame likewise, and the CPU is refused as
+    before."""
+    args = bench_infer.parse_args(["--mode", "spatial", "--sp", "3"])
+    with pytest.raises(ValueError,
+                       match="spatial=3 must divide the 4-rank world"):
+        bench_infer.layout(args, 4)
+    args = bench_infer.parse_args(["--mode", "spatial", "--hw", "42", "64"])
+    with pytest.raises(ValueError, match="height 42 must tile the 4 ranks"):
+        bench_infer.layout(args, 4)
+    assert bench_infer.layout(bench_infer.parse_args(
+        ["--mode", "spatial", "--sp", "2"]), 8) == (4, 2, 4)
+    with pytest.raises(ValueError, match="times the card"):
         bench_infer.main(["--mode", "spatial"], device="cpu")
 
 

@@ -17,7 +17,9 @@ the CPU.
     ``Checkpointer`` reads the port's files; its ``.pth`` key maps cover
     the reference archs only, so the test gives it the tiny arch's map,
     which names the flax scopes as the port names its modules);
-  * ``--spatial 2`` and ``spatial=2`` raise, naming ROADMAP item 10.
+  * ``--spatial 2`` and ``spatial=2`` in a world of one raise
+    ``ValueError`` (the layouts over several ranks are
+    ``tests/test_torch_infer_mesh.py``'s).
 
 Wall time of this file on the CPU host the tier-1 tests run on: ~21 s run
 alone.
@@ -260,14 +262,28 @@ def test_student_and_teacher_differ(roots, snapshot, tmp_path):
 
 
 def test_spatial_raises_naming_item_10(roots, models, snapshot, tmp_path):
+    """Multi-GPU inference (ROADMAP item 10) is ported: what still raises
+    is a layout the world cannot make, here 2 ranks a frame in the world
+    of one process, before anything is written
+    (``tests/test_torch_infer_mesh.py`` runs the layouts)."""
     _, troot = roots
-    with pytest.raises(NotImplementedError, match="item 10"):
+    msg = "spatial=2 must divide the 1-rank world"
+    with pytest.raises(ValueError, match=msg):
         tcli.main(["--cfg", "configs/tiny_cpu.yaml", "--resume", snapshot,
-                   "--mask-output-dir", str(tmp_path), "--spatial", "2"],
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+                   "--mask-output-dir", str(tmp_path), "--spatial", "2",
+                   "--set", "DATASET.ROOT", troot], device="cpu")
+    with pytest.raises(ValueError, match=msg):
         tengine.run_inference(models[2],
                               tengine.InferDataset(troot, "val_cityscapes"),
                               str(tmp_path), mean=MEAN, std=STD, spatial=2,
                               device="cpu")
     assert not os.listdir(tmp_path)
+    # all the ranks of a world of one on a frame: the frame whole
+    conf = tengine.run_inference(
+        models[2], tengine.InferDataset(troot, "val_cityscapes"),
+        str(tmp_path / "sp"), mean=MEAN, std=STD, spatial=-1, verbose=False,
+        device="cpu")
+    np.testing.assert_array_equal(conf, tengine.run_inference(
+        models[2], tengine.InferDataset(troot, "val_cityscapes"),
+        str(tmp_path / "b"), mean=MEAN, std=STD, verbose=False,
+        device="cpu"))
