@@ -185,7 +185,40 @@ no result line:
               probabilities within 1e-4 and labels equal on >= 99.99% of
               pixels, bf16 labels on >= 99.8%; every rank exchanged rows.
               Per rank: ms per frame, exchanges and bytes a forward by
-              layer kind, peak GB, the transport.
+              layer kind, peak GB, the transport;
+ 19. remat_opt  remat (``TPU.REMAT``) and ``MODEL.OPT adam``, at full
+              width and depth in bf16, random weights from the seed: (a)
+              the flagship SAC step (phase 4's batch) under none, block
+              and convs: the first step through the views step with its
+              gradients (loss within rtol 1e-3 of none's, every
+              parameter's gradient within a relative L2 error of 2e-2),
+              then 8 steps timed (median of the last 6), peak GB, 2 + 2
+              CE launches a step, all bulk, the same in every mode; (b)
+              the ABN step under none and block, cuDNN deterministic: on
+              the flagship model (phase 6's frames) the step's source
+              half alone leaves block's BN buffers equal to none's and
+              every ``num_batches_tracked`` at 1 (the replay updated
+              nothing), then 6 steps timed; on a shallow f32 r101 at the
+              same frames 2 whole steps leave every running statistic
+              within rtol 1e-3 of none's and ``num_batches_tracked`` 4 in
+              both; (c) the ABN step of each VGG
+              arch (phase 12's) under block and convs, 6 steps, beside
+              phase 12's none figures; (d) the flagship SAC step with
+              Adam, 8 steps, saved through ``Checkpointer`` and loaded into
+              a fresh state (moments and step counts equal to the bit),
+              and the SAC views step with Adam, card against CPU on phase
+              3's input (losses and labels as there, gradients within rel
+              L2 1e-3, parameters and moments within rtol 1e-3 of a CPU
+              Adam fed the card's gradients);
+ 20. step_tools  each step tool's ``main`` at its flagship defaults
+              (``tools/flagship.py``): ``profile_step`` (six stages) under
+              each remat mode, ``conv_roofline`` (every shape's TF/s and
+              share of the card's dense bf16 peak, the conv-bound floor),
+              ``op_traffic`` (top 15 ops, totals) under none and convs,
+              ``compare_refine_res`` cut to 20 + 20 + 20 steps
+              (``src_loss_ce`` equal in the arms at their first step);
+              cuDNN autotuning off before each, which the tool turns on;
+              CE launches per tool exact and bulk.
 Each phase prints one JSON line with the card's name and power limit.
 Phases 10, 13, 14, 15, 17 and 18 call each entry point with cuDNN autotuning
 off, as a new process starts, and check that the entry point turned it on.
@@ -196,10 +229,13 @@ line carry the trainer's launches (``launches_train``), the VGG steps'
 (``launches_vgg``), the trainer's from the dataset tools' packs
 (``launches_dataset``) and phase 16's by part (``launches_ddp``: the NCCL
 world's steps and CLI stages, each gloo rank's steps), phase 17's by
-train stage (``launches_recipe``) and phase 18's (``launches_infer_mesh``:
-inference launches no CE kernel, so 0).
+train stage (``launches_recipe``), phase 18's (``launches_infer_mesh``:
+inference launches no CE kernel, so 0), phase 19's by part
+(``launches_remat_opt``) and phase 20's by tool (``launches_step_tools``).
 
-``python3 chip_smoke.py --infer-mesh-only`` runs phase 18 alone.
+``python3 chip_smoke.py --infer-mesh-only`` runs phase 18 alone;
+``--remat-only`` and ``--step-tools-only`` build the CE kernels and run
+phase 19 or 20 alone (both flags: both phases).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -512,25 +548,26 @@ class _ModelCfg:
     OPT = "SGD"
     OPT_NESTEROV = False
     MOMENTUM = 0.9
+    BETA1 = 0.5
 
 
-def check_agreement(device, arch="deeplabv2_resnet101", label="agree",
-                    card=None, **model_kw):
-    """The SAC views step of ``arch`` (default a shallow full-width r101;
-    ``model_kw`` go to ``build_model``) on a 40x48 input, 2 iterations on
-    the CPU and on ``device`` from the same He-scaled weights and views:
-    losses, running_conf, parameters and teacher within rtol 1e-3 / atol
-    1e-5, pseudo-labels within 1%."""
+def model_cfg(opt="SGD"):
+    """``_ModelCfg`` with ``OPT`` = ``opt`` (``MODEL.OPT``)."""
+    return type("_ModelCfg_" + opt, (_ModelCfg,), {"OPT": opt})
+
+
+def agreement_inputs(arch="deeplabv2_resnet101", **model_kw):
+    """Phase 3's small input: the step config, 2 groups of 3 target views
+    and 2 source frames at 40x48 from ``SEED``, and the ``state_dict`` of
+    ``arch`` (``model_kw`` go to ``build_model``) with He-scaled conv
+    weights (confident, varied logits)."""
     import torch
 
     from dasac_tpu_torch.aug import pipelines
-    from dasac_tpu_torch.core.state import create_train_state
     from dasac_tpu_torch.nn.factory import build_model
     from dasac_tpu_torch.nn.layers import Conv2d
-    from dasac_tpu_torch.train import optim, steps
+    from dasac_tpu_torch.train import steps
 
-    if arch == "deeplabv2_resnet101" and not model_kw:
-        model_kw = dict(layers=(1, 1, 1, 1))
     h, w, g, t = 40, 48, 2, 3
     scfg = steps.StepConfig(crop_hw=(h, w), group_size=t, lr_target=0.1,
                             net_momentum_iter=1, run_conf_lower=0.01)
@@ -545,23 +582,47 @@ def check_agreement(device, arch="deeplabv2_resnet101", label="agree",
 
     gen = torch.Generator().manual_seed(SEED)
     ref_model = build_model(arch, C, device="cpu", generator=gen, **model_kw)
-    with torch.no_grad():   # He-scaled weights: confident, varied logits
+    with torch.no_grad():
         for m in ref_model.modules():
             if isinstance(m, Conv2d):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
+    return scfg, views, src_x, src_y, ref_model.state_dict()
+
+
+def agreement_runs(device, arch, model_kw, opt, debug):
+    """Phase 3's two runs: 2 iterations of the SAC views step of ``arch``
+    with the optimizer ``opt`` on the CPU and on ``device`` from
+    :func:`agreement_inputs`; {device: (state, metrics per iteration)}."""
+    from dasac_tpu_torch.aug import pipelines
+    from dasac_tpu_torch.core.state import create_train_state
+    from dasac_tpu_torch.nn.factory import build_model
+    from dasac_tpu_torch.train import optim, steps
+
+    scfg, views, src_x, src_y, ref_sd = agreement_inputs(arch, **model_kw)
     runs = {}
     for dev in ("cpu", device):
         model = build_model(arch, C, device="cpu", **model_kw)
-        model.load_state_dict(ref_model.state_dict())
-        opt = optim.build_optimizer(_ModelCfg, arch, model)
-        state = create_train_state(model, opt, C, device=dev)
-        step = steps.make_sac_views_step(scfg, debug="light")
+        model.load_state_dict(ref_sd)
+        state = create_train_state(
+            model, optim.build_optimizer(model_cfg(opt), arch, model), C,
+            device=dev)
+        step = steps.make_sac_views_step(scfg, debug=debug)
         v = pipelines.TargetViews(*(a.to(dev) for a in views))
         mets = [step(state, src_x.to(dev), src_y.to(dev), v)
                 for _ in range(2)]
-        runs[dev] = (state, [{k: x.cpu() for k, x in m.items()} for m in mets])
-    (s_ref, m_ref), (s_dev, m_dev) = runs["cpu"], runs[device]
+        runs[dev] = (state, [{k: (x.cpu() if hasattr(x, "cpu") else
+                                  {n: g.cpu() for n, g in x.items()})
+                              for k, x in m.items()} for m in mets])
+    return runs, ref_sd
+
+
+def check_losses_and_labels(m_ref, m_dev):
+    """Losses and running_conf within rtol 1e-3 / atol 1e-5 and
+    pseudo-labels within 1% at each iteration; the worst label
+    mismatch."""
+    import torch
+
     worst = 0.0
     for it, (a, b) in enumerate(zip(m_ref, m_dev)):
         for k in ("src_loss_ce", "self_ce", "running_conf"):
@@ -573,6 +634,23 @@ def check_agreement(device, arch="deeplabv2_resnet101", label="agree",
              "iter %d: pseudo cover %.4f mismatch %.4f" % (it, cover,
                                                            mismatch))
         worst = max(worst, mismatch)
+    return worst
+
+
+def check_agreement(device, arch="deeplabv2_resnet101", label="agree",
+                    card=None, **model_kw):
+    """The SAC views step of ``arch`` (default a shallow full-width r101;
+    ``model_kw`` go to ``build_model``) on a 40x48 input, 2 iterations on
+    the CPU and on ``device`` from the same He-scaled weights and views:
+    losses, running_conf, parameters and teacher within rtol 1e-3 / atol
+    1e-5, pseudo-labels within 1%."""
+    import torch
+
+    if arch == "deeplabv2_resnet101" and not model_kw:
+        model_kw = dict(layers=(1, 1, 1, 1))
+    runs, _ = agreement_runs(device, arch, model_kw, "SGD", "light")
+    (s_ref, m_ref), (s_dev, m_dev) = runs["cpu"], runs[device]
+    worst = check_losses_and_labels(m_ref, m_dev)
     ref_p = dict(s_ref.model.named_parameters())
     for k, p in s_dev.model.named_parameters():
         torch.testing.assert_close(p.detach().cpu(), ref_p[k].detach(),
@@ -583,6 +661,53 @@ def check_agreement(device, arch="deeplabv2_resnet101", label="agree",
     log("%s: %s card vs CPU views step, 2 iterations: losses, running_conf, "
         "params and teacher within rtol 1e-3 / atol 1e-5; pseudo-label "
         "mismatch %.5f (< 0.01); %s" % (label, arch, worst, card))
+
+
+def check_adam_agreement(device, card=None):
+    """Phase 3's check with ``MODEL.OPT adam`` (shallow f32 r101): losses,
+    running_conf and pseudo-labels as there; each iteration's gradients
+    within a relative L2 error of 1e-3 of the CPU's; the card's
+    parameters and Adam moments within rtol 1e-3 / atol 1e-5 of a CPU
+    Adam fed the card's own gradients.  Not the CPU run's parameters:
+    Adam's first steps move each weight by about ``lr * sign(g)``, so a
+    gradient within rounding of 0 moves its weight by +-lr on one device
+    and the other."""
+    import torch
+
+    from dasac_tpu_torch.nn.factory import build_model
+    from dasac_tpu_torch.train import optim
+
+    arch, model_kw = "deeplabv2_resnet101", dict(layers=(1, 1, 1, 1))
+    runs, ref_sd = agreement_runs(device, arch, model_kw, "adam", True)
+    (_, m_ref), (s_dev, m_dev) = runs["cpu"], runs[device]
+    worst_labels = check_losses_and_labels(m_ref, m_dev)
+    worst_grad = 0.0
+    for it, (a, b) in enumerate(zip(m_ref, m_dev)):
+        for k, g in b["grads"].items():
+            rel = _rel_l2(g, a["grads"][k])
+            need(rel < 1e-3, "adam_agree iter %d: gradient of %s off the "
+                 "CPU's by rel L2 %.3e" % (it, k, rel))
+            worst_grad = max(worst_grad, rel)
+    replay = build_model(arch, C, device="cpu", **model_kw)
+    replay.load_state_dict(ref_sd)
+    opt = optim.build_optimizer(model_cfg("adam"), arch, replay)
+    params = dict(replay.named_parameters())
+    for m in m_dev:
+        for k, p in params.items():
+            p.grad = m["grads"][k]
+        opt.step()
+    for k, p in s_dev.model.named_parameters():
+        torch.testing.assert_close(p.detach().cpu(), params[k].detach(),
+                                   rtol=1e-3, atol=1e-5, msg=k)
+        for key in ("exp_avg", "exp_avg_sq"):
+            torch.testing.assert_close(
+                s_dev.optimizer.state[p][key].cpu(),
+                opt.state[params[k]][key], rtol=1e-3, atol=1e-5,
+                msg="%s %s" % (key, k))
+    out = dict(phase="adam_agree", card=card, iterations=2,
+               grad_rel_l2_worst=worst_grad, label_mismatch=worst_labels)
+    log("adam_agree: %s" % json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -604,12 +729,14 @@ def sac_step_config():
         ce_impl="kernel")
 
 
-def flagship_state(device, seed=SEED, group=None, dtype=None, **model_kw):
+def flagship_state(device, seed=SEED, group=None, dtype=None, remat="none",
+                   opt="SGD", **model_kw):
     """Full-width, full-depth ``deeplabv2_resnet101`` in bf16 (or
-    ``dtype``) with random weights from ``seed``, its SGD and train state;
-    ``group``: the process group of its BN layers' cross-replica
-    statistics; ``model_kw`` go to ``build_model`` (``layers`` for a
-    shallower trunk)."""
+    ``dtype``) with random weights from ``seed``, its optimizer (``opt``:
+    ``MODEL.OPT``) and train state; ``group``: the process group of its
+    BN layers' cross-replica statistics; ``remat``: ``TPU.REMAT``;
+    ``model_kw`` go to ``build_model`` (``layers`` for a shallower
+    trunk)."""
     import torch
 
     from dasac_tpu_torch.core.state import create_train_state
@@ -618,11 +745,11 @@ def flagship_state(device, seed=SEED, group=None, dtype=None, **model_kw):
 
     model = build_model("deeplabv2_resnet101", C,
                         dtype=dtype or torch.bfloat16,
-                        remat="none", device=device, group=group,
+                        remat=remat, device=device, group=group,
                         generator=torch.Generator().manual_seed(seed),
                         **model_kw)
-    opt = optim.build_optimizer(_ModelCfg, "deeplabv2_resnet101", model)
-    return create_train_state(model, opt, C, device=device)
+    return create_train_state(model, optim.build_optimizer(
+        model_cfg(opt), "deeplabv2_resnet101", model), C, device=device)
 
 
 def sac_batch(device):
@@ -1620,7 +1747,7 @@ def run_vgg(ce, ce_triton, device, card):
     for ``VGG_ABN_STEPS``; launch counts set to 0 before and read after
     each run (2 + 2 a SAC step, 2 + 1 an ABN step, all bulk), peak memory,
     then 2 steps of each under the profiler.  Returns {arch: {kind:
-    launches}}."""
+    launches}} and {arch: (ABN step ms median, peak GB)}."""
     import torch
 
     from dasac_tpu_torch.core.state import create_train_state
@@ -1628,7 +1755,7 @@ def run_vgg(ce, ce_triton, device, card):
     from dasac_tpu_torch.train import optim, steps
 
     torch.backends.cudnn.benchmark = True
-    launches = {}
+    launches, abn_figures = {}, {}
     for arch in VGG_ARCHS:
         launches[arch] = {}
         for kind, path in zip(("sac", "abn"), VGG_CFG[arch]):
@@ -1677,6 +1804,9 @@ def run_vgg(ce, ce_triton, device, card):
                          if not torch.isfinite(p).all()]
             need(not nonfinite, "non-finite params: %s" % nonfinite[:4])
             launches[arch][kind] = got
+            if kind == "abn":
+                abn_figures[arch] = (statistics.median(
+                    times[WARMUP_STEPS:]), peak / 1e9)
             log("vgg: %s" % json.dumps(dict(
                 phase="vgg", arch=arch, step=kind, config=path, card=card,
                 steps=n, warmup=WARMUP_STEPS, step_ms=times,
@@ -1687,7 +1817,7 @@ def run_vgg(ce, ce_triton, device, card):
                           label="vgg_profile %s %s" % (arch, kind))
             del state, model, step, batch
             torch.cuda.empty_cache()
-    return launches
+    return launches, abn_figures
 
 
 # ---------------------------------------------------------------------------
@@ -3258,6 +3388,382 @@ def run_infer_mesh(ce, ce_triton, device, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: remat (TPU.REMAT) for the three archs, and MODEL.OPT adam
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "block", "convs")
+REMAT_ABN_STEPS = 6  # ABN steps timed a mode, the first 2 warm-up
+REMAT_BASE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_remat")
+
+
+def run_steps(step, state, batch, gen, n, label):
+    """``n`` calls of ``step`` with the peak memory reset before: (step ms
+    per call, peak GB, scalar metrics per call, all finite)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, rows = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        row = {k: float(v) for k, v in m.items() if v.dim() == 0}
+        for k, v in row.items():
+            need(math.isfinite(v), "%s step %d: %s = %r" % (label, i, k, v))
+        rows.append(row)
+    return times, torch.cuda.max_memory_allocated() / 1e9, rows
+
+
+def _rel_l2(got, ref):
+    return float((got.float() - ref.float()).norm()
+                 / (ref.float().norm() + 1e-30))
+
+
+def remat_sac(ce, ce_triton, device, card):
+    """(a) The flagship SAC step (phase 4's batch and weights) under each
+    remat mode: the first step through the views step with its gradients
+    (loss within rtol 1e-3 of none's, each parameter's gradient within a
+    relative L2 error of 2e-2, tests/test_remat_modes.py's bound: cuDNN
+    may pick other algorithms in the replay), then ``N_STEPS`` steps
+    timed; launches 2 + 2 a step, all bulk, the same in every mode."""
+    import torch
+
+    from dasac_tpu_torch.train import steps
+
+    scfg = sac_step_config()
+    batch = sac_batch(device)
+    ref, out, launches = None, {}, {}
+    for mode in REMAT_MODES:
+        state = flagship_state(device, remat=mode)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        reset_counts(ce, ce_triton)
+        first = steps.make_sac_views_step(scfg, debug=True)(
+            state, *steps.augment_sac(scfg, gen, batch), gen)
+        loss = {k: float(first[k]) for k in ("src_loss_ce", "self_ce")}
+        grads = {k: g.cpu() for k, g in first["grads"].items()}
+        del first
+        if ref is None:
+            ref = (loss, grads)
+            worst = 0.0
+        else:
+            for k, v in loss.items():
+                need(math.isclose(v, ref[0][k], rel_tol=1e-3, abs_tol=1e-6),
+                     "remat %s first-step %s %r vs none %r"
+                     % (mode, k, v, ref[0][k]))
+            rel = {k: _rel_l2(g, ref[1][k]) for k, g in grads.items()}
+            worst_k = max(rel, key=rel.get)
+            worst = rel[worst_k]
+            need(worst < 2e-2, "remat %s: gradient of %s off none's by "
+                 "rel L2 %.3e" % (mode, worst_k, worst))
+        del grads
+        step = steps.make_sac_step(scfg, device=device)
+        times, peak, rows = run_steps(step, state, batch, gen, N_STEPS,
+                                      "remat sac " + mode)
+        got, paths, _ = read_counts(ce, ce_triton, {
+            "nll_fwd": 2 * (N_STEPS + 1), "nll_bwd": 2 * (N_STEPS + 1)})
+        launches[mode] = got
+        out[mode] = dict(
+            step_ms=times,
+            step_ms_median=statistics.median(times[WARMUP_STEPS:]),
+            peak_gb=peak, first_step=loss, grad_rel_l2_worst=worst,
+            losses=rows, ce_launches=got, ce_launches_by_path=paths)
+        log("remat_sac %s: %s" % (mode, json.dumps(dict(out[mode],
+                                                        card=card))))
+        del state, step
+        torch.cuda.empty_cache()
+    need(all(v == launches["none"] for v in launches.values()),
+         "CE launches differ between remat modes: %s" % launches)
+    return out, launches
+
+
+def remat_abn(ce, ce_triton, device, card):
+    """(b) The ABN step under none and block, cuDNN deterministic.  On
+    the flagship model (phase 6's state and frames, bf16): the step's
+    source half alone (one live-BN forward and its backward, no update)
+    leaves block's BN buffers equal to none's (rtol 1e-3 / atol 1e-6; the
+    same forward arithmetic) and every ``num_batches_tracked`` at 1, so
+    the replay in the backward updated nothing; the gradients' worst
+    relative L2 difference is reported (bf16: the replayed convs round
+    differently, and live BN's backward magnifies it in the BN biases);
+    then ``REMAT_ABN_STEPS`` steps timed.  On a shallow r101 in f32 (every
+    replayed op rounds as the first time) at the same frames: 2 whole
+    steps from the same state leave every running statistic within rtol
+    1e-3 / atol 1e-6 of none's and ``num_batches_tracked`` at 4 in both.
+    Launches 2 + 1 a step and 1 + 1 for the source half, all bulk."""
+    import torch
+
+    from dasac_tpu_torch.sac import core as sac_core
+    from dasac_tpu_torch.train import steps
+
+    scfg = abn_step_config()
+    batch = abn_batch(device)
+
+    def buffers(model):
+        return {k: v.detach().cpu().clone()
+                for k, v in model.named_buffers()}
+
+    def same_buffers(got, want, tracked, what):
+        for k, v in want.items():
+            if k.endswith("num_batches_tracked"):
+                need(int(got[k]) == int(v) == tracked, "%s %s: %d under "
+                     "block, %d under none, want %d" % (what, k, int(got[k]),
+                                                        int(v), tracked))
+            else:
+                torch.testing.assert_close(got[k], v, rtol=1e-3, atol=1e-6,
+                                           msg="%s %s" % (what, k))
+
+    out, launches, half, grads, two = {}, {}, {}, {}, {}
+    for mode in ("none", "block"):
+        state = flagship_state(device, remat=mode)
+        step = steps.make_abn_step(scfg, device=device)
+        reset_counts(ce, ce_triton)
+        torch.backends.cudnn.deterministic = True
+        try:
+            src, lbl = steps.augment_abn(scfg, torch.Generator(
+                device=device).manual_seed(SEED + 1), batch)[:2]
+            _, up = state.model(src, train=True, update_stats=True)
+            sac_core.cross_entropy_mean(up, lbl, impl="kernel").backward()
+            del src, lbl, up
+        finally:
+            torch.backends.cudnn.deterministic = False
+        half[mode] = buffers(state.model)
+        grads[mode] = {k: p.grad.detach().cpu() for k, p in
+                       state.model.named_parameters()}
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        times, peak, rows = run_steps(step, state, batch, gen,
+                                      REMAT_ABN_STEPS, "remat abn " + mode)
+        got, paths, _ = read_counts(ce, ce_triton, {
+            "nll_fwd": 1 + 2 * REMAT_ABN_STEPS,
+            "nll_bwd": 1 + REMAT_ABN_STEPS})
+        launches[mode] = got
+        out[mode] = dict(
+            step_ms=times,
+            step_ms_median=statistics.median(times[WARMUP_STEPS:]),
+            peak_gb=peak, losses=rows, ce_launches=got,
+            ce_launches_by_path=paths)
+        del state, step
+        torch.cuda.empty_cache()
+
+        shallow = flagship_state(device, remat=mode, dtype=torch.float32,
+                                 layers=(1, 1, 1, 1))
+        step = steps.make_abn_step(scfg, device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        reset_counts(ce, ce_triton)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for _ in range(2):
+                step(shallow, batch, gen)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        launches[mode + "_shallow_f32"] = read_counts(
+            ce, ce_triton, {"nll_fwd": 4, "nll_bwd": 2})[0]
+        two[mode] = buffers(shallow.model)
+        del shallow, step
+        torch.cuda.empty_cache()
+    same_buffers(half["block"], half["none"], 1, "source half")
+    same_buffers(two["block"], two["none"], 4, "shallow f32, 2 steps")
+    out["source_half_grad_rel_l2_worst"] = max(
+        _rel_l2(g, grads["none"][k]) for k, g in grads["block"].items())
+    out["shallow_f32_two_steps_max_abs_diff"] = max(
+        float((two["block"][k] - v).abs().max())
+        for k, v in two["none"].items() if v.is_floating_point())
+    log("remat_abn: %s" % json.dumps(dict(out, card=card)))
+    return out, launches
+
+
+def remat_vgg(ce, ce_triton, device, card, none_figures=None):
+    """(c) The ABN step of each VGG arch (phase 12's: its base YAML,
+    640x640 crops) under block and convs, ``REMAT_ABN_STEPS`` steps:
+    step ms and peak GB beside phase 12's none figures
+    (``none_figures``: {arch: (step ms, peak GB)}, None when phase 12
+    did not run); launches 2 + 1 a step, all bulk."""
+    import torch
+
+    from dasac_tpu_torch.core.state import create_train_state
+    from dasac_tpu_torch.nn.factory import build_model
+    from dasac_tpu_torch.train import optim, steps
+
+    out, launches = {}, {}
+    for arch in VGG_ARCHS:
+        cfg, scfg = yaml_config(VGG_CFG[arch][1])
+        src = (cfg.TRAIN.BATCH_SIZE, *ABN_SRC[1:])
+        tgt = (cfg.TRAIN.NUM_GROUPS, *ABN_TGT[1:])
+        batch = abn_batch(device, src, tgt)
+        out[arch] = {"none_phase12": (none_figures or {}).get(arch)}
+        for mode in REMAT_MODES[1:]:
+            model = build_model(arch, C, dtype=torch.bfloat16, remat=mode,
+                                device=device,
+                                generator=torch.Generator().manual_seed(SEED))
+            state = create_train_state(
+                model, optim.build_optimizer(cfg.MODEL, arch, model), C,
+                device=device)
+            step = steps.make_abn_step(scfg, device=device)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            reset_counts(ce, ce_triton)
+            times, peak, rows = run_steps(step, state, batch, gen,
+                                          REMAT_ABN_STEPS,
+                                          "remat %s %s" % (arch, mode))
+            got, paths, _ = read_counts(ce, ce_triton, {
+                "nll_fwd": 2 * REMAT_ABN_STEPS, "nll_bwd": REMAT_ABN_STEPS})
+            launches["%s_%s" % (arch, mode)] = got
+            out[arch][mode] = dict(
+                step_ms=times,
+                step_ms_median=statistics.median(times[WARMUP_STEPS:]),
+                peak_gb=peak, losses=rows, ce_launches=got,
+                ce_launches_by_path=paths)
+            del state, model, step
+            torch.cuda.empty_cache()
+        log("remat_vgg %s: %s" % (arch, json.dumps(dict(out[arch],
+                                                        card=card))))
+    return out, launches
+
+
+def remat_adam(ce, ce_triton, device, card):
+    """(d) The flagship SAC step with ``MODEL.OPT adam`` for ``N_STEPS``
+    steps (finite losses, launches 2 + 2 a step, all bulk); the state
+    saved through ``Checkpointer`` and loaded into a fresh state: Adam's
+    ``exp_avg``, ``exp_avg_sq`` and ``step`` equal to the bit; then the
+    SAC views step with Adam, card against CPU on phase 3's small
+    input."""
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.train import steps
+    from dasac_tpu_torch.train.checkpoints import Checkpointer
+
+    state = flagship_state(device, opt="adam")
+    need(isinstance(state.optimizer, torch.optim.Adam), "not Adam")
+    step = steps.make_sac_step(sac_step_config(), device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    reset_counts(ce, ce_triton)
+    times, peak, rows = run_steps(step, state, sac_batch(device), gen,
+                                  N_STEPS, "adam")
+    got, paths, _ = read_counts(ce, ce_triton, {"nll_fwd": 2 * N_STEPS,
+                                                "nll_bwd": 2 * N_STEPS})
+    try:
+        path = Checkpointer(REMAT_BASE).save_latest(state, 0.0, 1)
+        fresh = flagship_state(device, seed=SEED + 1, opt="adam")
+        Checkpointer(REMAT_BASE).load(path, fresh)
+    finally:
+        shutil.rmtree(REMAT_BASE, ignore_errors=True)
+    n = 0
+    for p, q in zip(state.model.parameters(), fresh.model.parameters()):
+        a, b = state.optimizer.state[p], fresh.optimizer.state[q]
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            need(torch.equal(a[key], b[key]), "Adam %s not restored" % key)
+        need(int(b["step"]) == N_STEPS, "Adam step %s" % b["step"])
+        n += 1
+    out = dict(step_ms=times,
+               step_ms_median=statistics.median(times[WARMUP_STEPS:]),
+               peak_gb=peak, losses=rows, ce_launches=got,
+               ce_launches_by_path=paths, moments_restored=n)
+    log("remat_adam: %s" % json.dumps(dict(out, card=card)))
+    del state, fresh, step
+    torch.cuda.empty_cache()
+    check_adam_agreement(device, card)
+    return out, {"adam": got}
+
+
+def run_remat_opt(ce, ce_triton, device, card, vgg_none=None):
+    """Phase 19: (a) ``remat_sac``, (b) ``remat_abn``, (c) ``remat_vgg``,
+    (d) ``remat_adam``.  Returns the CE launches by part."""
+    import torch
+
+    torch.backends.cudnn.benchmark = True
+    launches, part_s = {}, {}
+    for part, args in ((remat_sac, ()), (remat_abn, ()),
+                       (remat_vgg, (vgg_none,)), (remat_adam, ())):
+        t0 = time.perf_counter()
+        name = part.__name__
+        launches.update({
+            k if name == "remat_adam" else "%s_%s" % (name, k): v
+            for k, v in part(ce, ce_triton, device, card, *args)[1].items()})
+        part_s[name] = time.perf_counter() - t0
+    log("remat_opt part_s: %s" % json.dumps(part_s))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the step tools
+# ---------------------------------------------------------------------------
+
+# --warmup, --steps, --every of compare_refine_res in the smoke (the tool's
+# own defaults, 300 each, take ~6 min)
+CRR_ARGS = ["--warmup", "20", "--steps", "20", "--every", "10"]
+
+
+def run_step_tools(ce, ce_triton, device, card):
+    """Phase 20: each step tool's ``main`` at its flagship defaults
+    (``tools/flagship.py``: r101 bf16, 8 + 2 x 4 frames at 512x1024), with
+    cuDNN autotuning off before (the tool turns it on) and the launch
+    counts set to 0 before and read after each: ``profile_step`` under
+    each remat mode (4 + 4 a warm-up or timed call of src_grad, tgt_grad
+    and full together), ``conv_roofline`` (no CE), ``op_traffic`` under
+    none and convs (2 + 2 in each of its 2 steps) and
+    ``compare_refine_res`` cut to ``CRR_ARGS`` (2 + 2 in each of its
+    warm-up and arm steps).  Returns the launches by tool."""
+    import torch
+
+    from dasac_tpu_torch.tools import (compare_refine_res, conv_roofline,
+                                       op_traffic, profile_step)
+
+    launches, tool_s = {}, {}
+
+    def run(name, fn, per_kernel):
+        fresh_cudnn()
+        reset_counts(ce, ce_triton)
+        t0 = time.perf_counter()
+        out = fn()
+        tool_s[name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches[name] = read_counts(ce, ce_triton, {
+            "nll_fwd": per_kernel, "nll_bwd": per_kernel})[0]
+        need(torch.backends.cudnn.benchmark or device.type != "cuda",
+             "%s left cuDNN autotuning off" % name)
+        torch.cuda.empty_cache()
+        return out
+
+    iters = profile_step.parse_args([]).iters
+    for mode in REMAT_MODES:
+        res = run("profile_step_" + mode, lambda: profile_step.main(
+            ["--remat", mode], device=device), 4 * (iters + 1))
+        need(set(res) == set(profile_step.STAGES)
+             and all(math.isfinite(v) and v > 0 for v in res.values()),
+             "profile_step %s: %s" % (mode, res))
+        log("step_tools profile_step: %s" % json.dumps(dict(
+            remat=mode, stages_ms=res, card=card)))
+    roof = run("conv_roofline", lambda: conv_roofline.main([], device=device),
+               0)
+    need(len(roof["rows"]) == len(conv_roofline.flagship_convs())
+         and all(0 < r["share_of_peak"] < 1 for r in roof["rows"]),
+         "conv_roofline rows: %s" % roof["rows"])
+    log("step_tools conv_roofline: %s" % json.dumps(dict(roof, card=card)))
+    for mode in ("none", "convs"):
+        tr = run("op_traffic_" + mode, lambda: op_traffic.main(
+            ["--remat", mode], device=device), 4)
+        need(len(tr["top"]) == 15 and tr["total_written_gb"] > 0,
+             "op_traffic %s" % mode)
+        log("step_tools op_traffic: %s" % json.dumps(tr))
+    warm, arm = int(CRR_ARGS[1]), int(CRR_ARGS[3])
+    crr = run("compare_refine_res", lambda: compare_refine_res.main(
+        CRR_ARGS, device=device), 2 * (warm + 2 * arm))
+    rows = crr["trajectories"]
+    need(rows["full"][0]["src_loss_ce"] == rows["stride8"][0]["src_loss_ce"],
+         "compare_refine_res: src_loss_ce differs at the first step")
+    log("step_tools compare_refine_res: %s" % json.dumps(dict(
+        worst_abs_delta=crr["worst_abs_delta"], first=dict(
+            full=rows["full"][0], stride8=rows["stride8"][0]),
+        last=dict(full=rows["full"][-1], stride8=rows["stride8"][-1]),
+        args=CRR_ARGS, card=card)))
+    log("step_tools tool_s: %s" % json.dumps(tool_s))
+    return launches
+
+
 def main(argv=()):
     import argparse
 
@@ -3274,6 +3780,14 @@ def main(argv=()):
         "--infer-mesh-only", action="store_true",
         help="instead of the phases, run phase 18 (inference over a world "
              "of ranks) alone")
+    parser.add_argument(
+        "--remat-only", action="store_true",
+        help="instead of the phases, build the CE kernels and run phase 19 "
+             "(remat and Adam) alone")
+    parser.add_argument(
+        "--step-tools-only", action="store_true",
+        help="instead of the phases, build the CE kernels and run phase 20 "
+             "(the step tools) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3301,6 +3815,17 @@ def main(argv=()):
     if args.infer_mesh_only:
         run_infer_mesh(ce, ce_triton, device, card)
         log("infer_mesh: %.1f s" % (time.perf_counter() - t_start))
+        return 0
+    if args.remat_only or args.step_tools_only:
+        build_cuda(ce)
+        for flag, phase in ((args.remat_only, run_remat_opt),
+                            (args.step_tools_only, run_step_tools)):
+            if flag:
+                t0 = time.perf_counter()
+                log("%s launches: %s" % (phase.__name__, json.dumps(
+                    phase(ce, ce_triton, device, card))))
+                log("%s: %.1f s" % (phase.__name__,
+                                    time.perf_counter() - t0))
         return 0
 
     phase_s, lap_t = {}, [t_start]
@@ -3350,7 +3875,7 @@ def main(argv=()):
     lap("train")
     check_vgg_agreement(device, card)
     lap("vgg_agree")
-    vgg = run_vgg(ce, ce_triton, device, card)
+    vgg, vgg_abn = run_vgg(ce, ce_triton, device, card)
     lap("vgg")
     run_infer_cli(ce, ce_triton, snapshot, device, card)
     lap("infer_cli")
@@ -3364,6 +3889,10 @@ def main(argv=()):
     lap("recipe")
     mesh_launches = run_infer_mesh(ce, ce_triton, device, card)
     lap("infer_mesh")
+    remat_launches = run_remat_opt(ce, ce_triton, device, card, vgg_abn)
+    lap("remat_opt")
+    tools_launches = run_step_tools(ce, ce_triton, device, card)
+    lap("step_tools")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -3420,6 +3949,12 @@ def main(argv=()):
             # inference over a world (phase 18): none
             row["launches_infer_mesh"] = (mesh_launches[k]
                                           if route == "cuda" else 0)
+            # remat and Adam (phase 19) and the step tools (phase 20), by
+            # part
+            for key, by_part in (("launches_remat_opt", remat_launches),
+                                 ("launches_step_tools", tools_launches)):
+                row[key] = {part: (got[k] if route == "cuda" else 0)
+                            for part, got in by_part.items()}
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

@@ -13,10 +13,10 @@ The ``TPU`` section is kept whole so every config loads, but:
     (XLA loss rematerialization) are accepted and not read;
   * ``TPU.MESH_DEVICES`` is the number of data-parallel processes, one per
     device, that the train CLI spawns (0 = as many visible GPUs as divide
-    both batch dimensions); ``TPU.PARTITION`` "gspmd", ``TPU.MESH_SP`` > 1
-    and ``TPU.REMAT`` other than "none" make the trainer raise
-    ``NotImplementedError`` (height sharding and remat are still to be
-    ported);
+    both batch dimensions); ``TPU.PARTITION`` "gspmd" and ``TPU.MESH_SP``
+    > 1 make the trainer raise ``NotImplementedError`` (height-sharded
+    training is still to be ported); ``TPU.REMAT`` (none / block / convs)
+    checkpoints the model as in ``dasac_tpu``;
   * ``TPU.CE_IMPL`` "pallas" selects the CUDA CE kernels, "xla" the plain
     log-softmax; ``TPU.COMPUTE_DTYPE``, ``REFINE_DTYPE``, ``REFINE_RES``,
     ``LOSS_DTYPE``, ``LOADER_THREADS``, ``PREFETCH``, ``PACKED_DIR`` and

@@ -199,35 +199,48 @@ def broadcast_values(values, device, src=0, group=None):
     return t.tolist()
 
 
-def _momentum(optimizer, device, src, group):
-    """The SGD momentum buffers, made to exist on every rank exactly where
-    they exist on rank ``src`` (a rank that loaded no snapshot has none)."""
+# an optimizer's per-parameter tensors: SGD's momentum, Adam's moments
+_OPT_TENSORS = ("momentum_buffer", "exp_avg", "exp_avg_sq")
+
+
+def _optimizer_state(optimizer, device, src, group):
+    """The optimizer's per-parameter tensors (``_OPT_TENSORS``), made to
+    exist on every rank exactly where they exist on rank ``src`` (a rank
+    that loaded no snapshot has none); Adam's step counts are set to rank
+    ``src``'s here."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    has = torch.tensor([optimizer.state.get(p, {}).get("momentum_buffer")
-                        is not None for p in params], dtype=torch.uint8,
-                       device=device)
+    has = torch.tensor([[optimizer.state.get(p, {}).get(k) is not None
+                         for k in _OPT_TENSORS] for p in params],
+                       dtype=torch.uint8, device=device)
     broadcast_([has], src, group)
+    steps = broadcast_values(
+        [float(optimizer.state.get(p, {}).get("step", 0)) for p in params],
+        device, src, group)
     out = []
-    for p, h in zip(params, has.tolist()):
+    for p, row, step in zip(params, has.tolist(), steps):
         st = optimizer.state[p]
-        if h:
-            if st.get("momentum_buffer") is None:
-                st["momentum_buffer"] = torch.zeros_like(p)
-            out.append(st["momentum_buffer"])
-        else:
-            st.pop("momentum_buffer", None)
+        for k, h in zip(_OPT_TENSORS, row):
+            if h:
+                if st.get(k) is None:
+                    st[k] = torch.zeros_like(p)
+                out.append(st[k])
+            else:
+                st.pop(k, None)
+        if row[1]:
+            st["step"] = torch.tensor(step, dtype=torch.float32)
     return out
 
 
 def state_tensors(state, device, src=0, group=None):
     """Every tensor of a train state that must be equal on all ranks:
-    parameters, buffers, teacher, ``running_conf`` and the momentum."""
+    parameters, buffers, teacher, ``running_conf`` and the optimizer's
+    state."""
     tensors = ([p.data for p in state.model.parameters()]
                + list(state.model.buffers())
                + list(state.teacher_params.values())
                + list(state.teacher_stats.values()) + [state.running_conf])
     if state.optimizer is not None:
-        tensors += _momentum(state.optimizer, device, src, group)
+        tensors += _optimizer_state(state.optimizer, device, src, group)
     return tensors
 
 

@@ -27,7 +27,9 @@ def build_model(arch, num_classes, dtype=torch.float32, remat="none",
     ``torch.Generator``; default seed 0) and move it to ``device``
     (default CUDA; raises when there is none).  ``group`` (a process
     group) makes every BN's live statistics cross-replica, as
-    ``dasac_tpu``'s ``axis_name`` does.  ``kwargs`` go to the model
+    ``dasac_tpu``'s ``axis_name`` does.  ``remat`` (``TPU.REMAT``,
+    ``nn.resnet.remat_mode``) checkpoints the trunk in the backward.
+    ``kwargs`` go to the model
     (``layers`` for the ResNet, ``drop_rate`` for FCN8s, ``width`` for
     tiny)."""
     key = arch.lower()

@@ -14,13 +14,25 @@ BN modes:
     update the running ones with torch's conventions; with a process
     group, the statistics are those of the global batch (one collective a
     layer in the forward and one in the backward).
+
+Remat (:func:`checkpointed`, ``TPU.REMAT``): a model runs a block or a
+chunk of layers under ``torch.utils.checkpoint``, which replays its forward
+in the backward.  The replay recomputes batch statistics (and, with a
+group, their all-reduce) but leaves the running ones alone, so a live BN
+updates its buffers once a forward, as flax's ``nn.remat`` applies the
+``batch_stats`` mutation once.
 """
 
+import contextlib
+import contextvars
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.nn import spatial
@@ -132,6 +144,15 @@ class SyncBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
 
+    @torch.no_grad()
+    def _update_running(self, mean, var, count):
+        unbiased = var * (count / max(count - 1.0, 1.0))
+        self.running_mean.mul_(1.0 - self.momentum).add_(
+            mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(
+            unbiased, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
     def forward(self, x, use_running_average):
         if use_running_average:
             mean, var = self.running_mean, self.running_var
@@ -152,13 +173,8 @@ class SyncBatchNorm(nn.Module):
                 mean, mean_sq = stats.split(mean.shape[0])
                 count *= world
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
-            with torch.no_grad():
-                unbiased = var * (count / max(count - 1.0, 1.0))
-                self.running_mean.mul_(1.0 - self.momentum).add_(
-                    mean, alpha=self.momentum)
-                self.running_var.mul_(1.0 - self.momentum).add_(
-                    unbiased, alpha=self.momentum)
-                self.num_batches_tracked.add_(1)
+            if not _RECOMPUTING.get():
+                self._update_running(mean, var, count)
 
         # fold (mean, var, scale, bias) into one per-channel multiply-add
         # applied in the compute dtype: the f32 coefficients are exact, the
@@ -183,3 +199,51 @@ def apply_channel_dropout(x, keep, rate):
     channel scaled by ``1 / (1 - rate)``, the others zeroed, the same over
     H and W (flax ``Dropout(rate, broadcast_dims=(1, 2))`` on NHWC)."""
     return x * (keep.to(x.dtype) / (1.0 - rate))[:, :, None, None]
+
+
+# True while a checkpoint replays its forward in the backward (set in the
+# thread that replays it: autograd's, for CUDA tensors)
+_RECOMPUTING = contextvars.ContextVar("dasac_tpu_torch_recompute",
+                                      default=False)
+
+
+@contextlib.contextmanager
+def _replaying(inner):
+    token = _RECOMPUTING.set(True)
+    try:
+        with inner:
+            yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """The ``convs`` policy: keep every convolution's output, recompute
+    the rest (``dasac_tpu``'s ``save_only_these_names("conv_out")``)."""
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _contexts(mode):
+    if mode == "convs":
+        forward, replay = create_selective_checkpoint_contexts(
+            _save_conv_outputs)
+        return forward, _replaying(replay)
+    return contextlib.nullcontext(), _replaying(contextlib.nullcontext())
+
+
+def checkpointed(fn, mode, *args):
+    """``fn(*args)`` under remat ``mode`` (``nn.resnet.remat_mode``):
+    "block" keeps only the inputs and replays the whole forward in the
+    backward; "convs" also keeps every convolution's output, so the replay
+    recomputes only the elementwise chain between them.  ``fn`` runs
+    directly for "none", and when no gradient is recorded (a no-grad
+    forward has nothing to replay).  Nothing inside ``fn`` may draw random
+    numbers: the replay does not restore a ``torch.Generator``, so the RNG
+    state is not saved at all."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=functools.partial(_contexts, mode))

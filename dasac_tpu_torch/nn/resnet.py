@@ -18,6 +18,12 @@ and the outputs come back NHWC.  Module names give the reference
 ``model.layer5.conv2d_list.0``, ...), so a reference checkpoint loads with
 ``strict=True``.  ``group`` (a process group, or ``None``) goes to every
 BN for cross-replica statistics.
+
+``remat`` (``TPU.REMAT``, :func:`remat_mode`) checkpoints the stem and each
+bottleneck (``nn.layers.checkpointed``) as ``dasac_tpu`` does: the stem
+fully in both modes, the bottlenecks fully ("block") or keeping their
+conv outputs ("convs"); ASPP never.  The checkpoints wrap the existing
+submodules, so the ``state_dict`` keys are the same in every mode.
 """
 
 import torch
@@ -26,9 +32,26 @@ from torch import nn
 from dasac_tpu_torch.nn.functional import (max_pool_ceil,
                                            resize_bilinear_align_corners)
 from dasac_tpu_torch.nn import spatial
-from dasac_tpu_torch.nn.layers import Conv2d, SyncBatchNorm
+from dasac_tpu_torch.nn.layers import Conv2d, SyncBatchNorm, checkpointed
 
 _INIT_STD = 0.01  # reference init for convs, normal(0, 0.01)
+
+
+def remat_mode(remat):
+    """Normalize a ``remat`` setting (bool, as older configs give it, or
+    str), as ``dasac_tpu/nn/resnet.py`` does:
+
+    "none"  -- keep all activations (fastest when they fit);
+    "block" -- checkpoint each residual block / stage chunk (only block
+               inputs survive the forward; convs recomputed in backward);
+    "convs" -- checkpoint each block keeping its conv outputs, so the
+               backward recomputes only the BN/ReLU elementwise chain.
+    """
+    mode = {False: "none", True: "block"}.get(remat, remat)
+    if mode not in ("none", "block", "convs"):
+        raise ValueError("remat must be none/block/convs, got {!r}".format(
+            remat))
+    return mode
 
 
 class Bottleneck(nn.Module):
@@ -93,8 +116,9 @@ class ResNet101Backbone(nn.Module):
     SPECS = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))
 
     def __init__(self, dtype=torch.float32, layers=(3, 4, 23, 3),
-                 group=None):
+                 group=None, remat="none"):
         super().__init__()
+        self.remat = remat_mode(remat)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, dtype=dtype,
                             init_std=_INIT_STD)
         self.bn1 = SyncBatchNorm(64, dtype=dtype, group=group)
@@ -116,13 +140,19 @@ class ResNet101Backbone(nn.Module):
             self.add_module("layer{}".format(li), nn.ModuleList(blocks))
         self.out_channels = in_planes
 
+    def _stem(self, x, update_stats):
+        x = torch.relu(self.bn1(self.conv1(x), not update_stats))
+        return max_pool_ceil(x, window=3, stride=2, padding=1)
+
     def forward(self, x, update_stats):
         """``x`` NCHW-shaped; returns the stride-8 features."""
-        x = torch.relu(self.bn1(self.conv1(x), not update_stats))
-        x = max_pool_ceil(x, window=3, stride=2, padding=1)
+        # the stem's full-resolution activations are cheap to recompute:
+        # fully checkpointed in both modes
+        stem_mode = "none" if self.remat == "none" else "block"
+        x = checkpointed(self._stem, stem_mode, x, update_stats)
         for li in range(1, 5):
             for block in getattr(self, "layer{}".format(li)):
-                x = block(x, update_stats)
+                x = checkpointed(block, self.remat, x, update_stats)
         return x
 
 
@@ -133,11 +163,9 @@ class DeepLabV2ResNet101(nn.Module):
     def __init__(self, num_classes=19, dtype=torch.float32, remat="none",
                  layers=(3, 4, 23, 3), group=None):
         super().__init__()
-        if remat not in ("none", False):
-            raise ValueError("the port supports remat='none' only")
         self.dtype = dtype
         self.model = ResNet101Backbone(dtype=dtype, layers=layers,
-                                       group=group)
+                                       group=group, remat=remat)
         # the reference keeps the classifier inside its trunk container as
         # ``layer5``; the trunk's forward does not run it
         self.model.layer5 = ASPP(self.model.out_channels, num_classes,

@@ -12,6 +12,12 @@
 
 Like the ResNet, a model passes ``group`` to every BN, takes NHWC input, runs on its NCHW-shaped
 ``channels_last`` view and returns ``(logits, logits_up)`` NHWC f32.
+With ``remat`` (``nn.resnet.remat_mode``) each feature stage runs in
+chunks at the pool boundaries, each checkpointed
+(``nn.layers.checkpointed``), as ``dasac_tpu``'s ``VGGStage`` does; fc6,
+fc7, the heads and FCN's channel dropout run outside every chunk.  A
+chunk is a run over the stage's own children, so the ``state_dict`` keys
+are the same in every mode.
 Module names are the reference's torch keys and are registered in the
 reference's order, so a reference ``state_dict`` loads with
 ``strict=True`` and ``named_parameters()`` lists the parameters in the
@@ -32,9 +38,9 @@ from dasac_tpu_torch.nn.functional import (max_pool,
                                            resize_bilinear_align_corners)
 from dasac_tpu_torch.nn import spatial
 from dasac_tpu_torch.nn.layers import (Conv2d, SyncBatchNorm,
-                                       apply_channel_dropout,
+                                       apply_channel_dropout, checkpointed,
                                        sample_channel_dropout_draws)
-from dasac_tpu_torch.nn.resnet import ASPP
+from dasac_tpu_torch.nn.resnet import ASPP, remat_mode
 
 _INIT_STD = 0.01  # reference init of the skip scores, normal(0, 0.01)
 
@@ -66,11 +72,15 @@ class VGGStage(nn.Module):
     """The vgg16_bn features with torch indices in ``[start, stop)``, as
     children named by index (``rename`` maps a torch index to another
     name).  ``skip_pools`` are left out; the convs in ``dilate`` get
-    dilation 2."""
+    dilation 2.  The stage runs as the torch-index ranges ``chunks``
+    (default: one, the whole stage), each checkpointed under ``remat``."""
 
     def __init__(self, start, stop, skip_pools=(), dilate=(),
-                 dtype=torch.float32, rename=lambda i: i, group=None):
+                 dtype=torch.float32, rename=lambda i: i, group=None,
+                 remat="none", chunks=None):
         super().__init__()
+        self.remat = remat_mode(remat)
+        self.chunks = tuple(chunks or ((start, stop),))
         self.plan = []
         in_ch = 3 if start == 0 else next(
             ch for i, kind, ch in reversed(VGG16_BN_LAYOUT)
@@ -87,11 +97,19 @@ class VGGStage(nn.Module):
             elif kind == "bn":
                 self.add_module(str(rename(idx)), SyncBatchNorm(
                     ch, dtype=dtype, group=group))
-            self.plan.append((kind, str(rename(idx))))
+            self.plan.append((idx, kind, str(rename(idx))))
         self.out_channels = in_ch
 
     def forward(self, x, update_stats):
-        for kind, name in self.plan:
+        for lo, hi in self.chunks:
+            x = checkpointed(self._run, self.remat, x, update_stats, lo, hi)
+        return x
+
+    def _run(self, x, update_stats, lo, hi):
+        """The layers with torch indices in ``[lo, hi)``."""
+        for idx, kind, name in self.plan:
+            if not lo <= idx < hi:
+                continue
             if kind == "pool":
                 x = max_pool(x, 2, 2)
             elif kind == "conv":
@@ -109,25 +127,20 @@ def _finish(logits, h, w, upsample):
     return logits, resize_bilinear_align_corners(logits, (h, w))
 
 
-def _check_remat(remat):
-    if remat not in ("none", False):
-        raise ValueError("the port supports remat='none' only")
-
-
 class DeepLabV2VGG16(nn.Module):
     """DeepLabv2 / VGG-16-BN, output stride 8."""
 
     def __init__(self, num_classes=19, dtype=torch.float32, remat="none",
                  group=None):
         super().__init__()
-        _check_remat(remat)
         self.dtype = dtype
         # pools 33 and 43 removed: the reference's Sequential renumbers
         # everything after 33 one down
         self.features = VGGStage(0, 44, skip_pools=(33, 43),
                                  dilate=(34, 37, 40), dtype=dtype,
                                  rename=lambda i: i - 1 if i > 33 else i,
-                                 group=group)
+                                 group=group, remat=remat,
+                                 chunks=((0, 7), (7, 14), (14, 24), (24, 44)))
         kw = dict(padding=4, dilation=4, bias=True, dtype=dtype)
         self.features.add_module("42", Conv2d(512, 1024, 3, **kw))    # fc6
         self.features.add_module("44", Conv2d(1024, 1024, 3, **kw))   # fc7
@@ -151,13 +164,14 @@ class VGG16FCN8s(nn.Module):
     def __init__(self, num_classes=19, dtype=torch.float32, remat="none",
                  drop_rate=0.1, group=None):
         super().__init__()
-        _check_remat(remat)
         self.dtype = dtype
         self.drop_rate = drop_rate
         bn = dict(dtype=dtype, group=group)
-        self.block1 = VGGStage(0, 24, **bn)     # to pool3, 1/8
-        self.block2 = VGGStage(24, 34, **bn)    # to pool4, 1/16
-        self.block3 = VGGStage(34, 44, **bn)    # to pool5, 1/32
+        # to pool3 (1/8), pool4 (1/16), pool5 (1/32)
+        self.block1 = VGGStage(0, 24, remat=remat,
+                               chunks=((0, 7), (7, 14), (14, 24)), **bn)
+        self.block2 = VGGStage(24, 34, remat=remat, **bn)
+        self.block3 = VGGStage(34, 44, remat=remat, **bn)
         kw = dict(bias=True, dtype=dtype)
         # the reference's Sequential: 0 conv 7x7, 1 bn, 2 relu, 3 dropout,
         # 4 conv 1x1, 5 bn, 6 relu, 7 dropout, 8 conv 1x1 (the score)

@@ -11,8 +11,9 @@ as ``dasac_tpu/tools/export_torch.py`` writes them:
     has been initialized (``slow_init``); an ABN snapshot has none;
   * ``module.running_conf`` [C] and ``module.slow_init`` (float, [1]).
 
-``opt`` is the SGD ``state_dict()``: parameter ids are positional over the
-four LR groups in the reference's order (``train/optim.py``).  The content
+``opt`` is the optimizer's ``state_dict()`` (SGD's or Adam's,
+``MODEL.OPT``): parameter ids are positional over the four LR groups in
+the reference's order (``train/optim.py``).  The content
 is tensors, dicts, lists, strings and numbers, so
 ``torch.load(weights_only=True)`` reads it, and ``dasac_tpu``'s own
 ``Checkpointer.load`` takes it (a ``.pth`` goes to its torch reader).
@@ -109,11 +110,12 @@ class Checkpointer:
         The student loads with ``strict=True``.  The teacher loads when the
         file has one; otherwise (an ABN snapshot) the teacher tensors stay
         as they are and ``slow_init`` becomes 0, so the first SAC step
-        copies the student (reference sac.py:74-81).  Only the SGD momentum
-        buffers are taken from ``opt``: the learning rates and weight decay
-        stay the optimizer's own (an ABN snapshot's would otherwise replace
-        the SAC stage's); a state without an optimizer (inference) reads
-        no ``opt``.  A file that is a bare ``state_dict`` loads as the
+        copies the student (reference sac.py:74-81).  Only the optimizer's
+        per-parameter state is taken from ``opt`` (SGD's momentum, Adam's
+        moments and step): the learning rates and weight decay stay the
+        optimizer's own (an ABN snapshot's would otherwise replace the SAC
+        stage's); a state without an optimizer (inference) reads no
+        ``opt``.  A file that is a bare ``state_dict`` loads as the
         student."""
         data = torch.load(path, map_location="cpu", weights_only=True)
         model_sd = data.get("model", data)
@@ -140,34 +142,58 @@ class Checkpointer:
                               and float(extras.get("slow_init", 0)) > 0)
         opt = data.get("opt") if "model" in data else None
         if opt and state.optimizer is not None:
-            _load_momentum(state.optimizer, opt)
+            _load_optimizer_state(state.optimizer, opt)
         return state, int(data.get("epoch", 0)), float(
             data.get("score", -1e16))
 
 
-def _load_momentum(optimizer, opt_dict):
-    """Copy the ``momentum_buffer`` of every parameter that ``opt_dict`` (an
-    SGD ``state_dict()``) holds one for into ``optimizer``, matching
-    parameters by position within the param groups; raises where the group
-    sizes or a buffer's shape disagree."""
+# the per-parameter state each optimizer kind keeps, by the key its
+# ``state_dict()``'s param groups carry and no other kind's does
+_OPT_KINDS = (("momentum", torch.optim.SGD, ("momentum_buffer",)),
+              ("betas", torch.optim.Adam, ("exp_avg", "exp_avg_sq", "step")))
+
+
+def _kind(groups):
+    for key, cls, fields in _OPT_KINDS:
+        if all(key in g for g in groups):
+            return cls, fields
+    raise ValueError("snapshot optimizer of unknown kind (param-group keys "
+                     "%s)" % sorted(groups[0]))
+
+
+def _load_optimizer_state(optimizer, opt_dict):
+    """Copy the per-parameter state that ``opt_dict`` (an SGD or Adam
+    ``state_dict()``) holds into ``optimizer``, matching parameters by
+    position within the param groups: SGD's ``momentum_buffer``, Adam's
+    ``exp_avg``, ``exp_avg_sq`` and ``step``.  Raises where the optimizer
+    kinds, the group sizes or a tensor's shape disagree."""
     groups = opt_dict.get("param_groups", [])
     st = opt_dict.get("state", {})
     if len(groups) != len(optimizer.param_groups):
         raise ValueError("snapshot has %d param groups, the optimizer %d"
                          % (len(groups), len(optimizer.param_groups)))
+    cls, fields = _kind(groups)
+    if type(optimizer) is not cls:
+        raise ValueError("snapshot holds %s state, the trainer's optimizer "
+                         "is %s (MODEL.OPT)" % (cls.__name__,
+                                                type(optimizer).__name__))
     for saved, group in zip(groups, optimizer.param_groups):
         if len(saved["params"]) != len(group["params"]):
             raise ValueError("param-group size mismatch: %d saved vs %d"
                              % (len(saved["params"]), len(group["params"])))
         for pid, p in zip(saved["params"], group["params"]):
-            buf = st.get(pid, {}).get("momentum_buffer")
-            if buf is None:
+            entry = st.get(pid, {})
+            if entry.get(fields[0]) is None:
                 continue
-            if tuple(buf.shape) != tuple(p.shape):
-                raise ValueError("momentum shape mismatch: %s vs %s"
-                                 % (tuple(buf.shape), tuple(p.shape)))
-            optimizer.state[p]["momentum_buffer"] = buf.to(
-                p.device, p.dtype, copy=True)
+            for f in fields:
+                t = entry[f]
+                if f == "step":  # a scalar count, kept on the host
+                    optimizer.state[p][f] = t.detach().clone()
+                    continue
+                if tuple(t.shape) != tuple(p.shape):
+                    raise ValueError("%s shape mismatch: %s vs %s"
+                                     % (f, tuple(t.shape), tuple(p.shape)))
+                optimizer.state[p][f] = t.to(p.device, p.dtype, copy=True)
 
 
 class BestTracker:

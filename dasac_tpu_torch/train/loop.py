@@ -17,8 +17,9 @@ so each draws its own augmentation (``dasac_tpu``'s ``_fold_axis``).  The
 state is broadcast from rank 0 after start-up and resume; rank 0 alone
 writes events, panels and snapshots; validation is sharded over the ranks,
 with the confusions summed.  Height sharding (``TPU.PARTITION`` "gspmd",
-``TPU.MESH_SP`` > 1; ROADMAP Queue 1 item 10) and remat (``TPU.REMAT``
-other than "none"; items 1 and 16) raise ``NotImplementedError``.
+``TPU.MESH_SP`` > 1; ROADMAP Queue 1 item 10) raises
+``NotImplementedError``; ``TPU.REMAT`` (none / block / convs) goes to the
+model.
 """
 
 import os
@@ -35,6 +36,7 @@ from dasac_tpu_torch.data import native_build
 from dasac_tpu_torch.data.factory import Loaders
 from dasac_tpu_torch.nn import convert
 from dasac_tpu_torch.nn.factory import build_model
+from dasac_tpu_torch.nn.resnet import remat_mode
 from dasac_tpu_torch.ops import ce, cuda_build
 from dasac_tpu_torch.train import optim as optim_lib
 from dasac_tpu_torch.train import steps as steps_lib
@@ -50,9 +52,11 @@ _PANEL_ITEMS = 4
 
 
 def check_partition(cfg):
-    """Raise ``NotImplementedError`` for the partitionings and modes the
-    port lacks: height sharding and remat."""
+    """Raise ``NotImplementedError`` for the partitioning the port lacks,
+    height sharding, and ``ValueError`` for an unknown ``TPU.PARTITION``
+    or ``TPU.REMAT``."""
     tpu = cfg.TPU
+    remat_mode(tpu.REMAT)
     if tpu.PARTITION not in ("shard_map", "gspmd"):
         raise ValueError("unknown TPU.PARTITION %r (expected 'shard_map' or "
                          "'gspmd')" % (tpu.PARTITION,))
@@ -63,9 +67,6 @@ def check_partition(cfg):
     if tpu.MESH_SP > 1:
         unsupported.append("TPU.MESH_SP=%d (height sharding, ROADMAP Queue 1 "
                            "item 10)" % tpu.MESH_SP)
-    if tpu.REMAT != "none":
-        unsupported.append("TPU.REMAT=%r (remat, ROADMAP Queue 1 items 1 and "
-                           "16)" % (tpu.REMAT,))
     if unsupported:
         raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
 
@@ -125,7 +126,7 @@ class Trainer:
         self.arch = cfg.MODEL.ARCH
         self.model = build_model(
             self.arch, self.nclass, dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],
-            device=self.device, group=self.group,
+            remat=cfg.TPU.REMAT, device=self.device, group=self.group,
             generator=torch.Generator().manual_seed(self.seed))
         self.scfg = steps_lib.step_config_from_cfg(cfg)._replace(
             num_classes=self.nclass)

@@ -196,17 +196,24 @@ def make_sac_step(scfg: StepConfig, device=None, group=None):
     views_step = make_sac_views_step(scfg, group=group)
 
     def step(state, batch, generator):
-        src_images, src_labels, tgt_images, tgt_labels = _to_device(
-            device, *batch)
-        src_frames, src_lbls = pipelines.augment_source_batch(
-            generator, src_images, src_labels, crop_hw=scfg.crop_hw,
-            scale_range=scfg.src_scale, hflip=scfg.src_hflip,
-            jitter=scfg.src_jitter, blur=scfg.src_blur,
-            mean=scfg.src_mean, std=scfg.src_std)
-        views = augment_target(scfg, generator, tgt_images, tgt_labels)
-        return views_step(state, src_frames, src_lbls, views, generator)
+        return views_step(state, *augment_sac(
+            scfg, generator, _to_device(device, *batch)), generator)
 
     return step
+
+
+def augment_sac(scfg: StepConfig, generator, batch):
+    """The SAC step's augmentation: ``batch`` = (src_images, src_labels,
+    tgt_images, tgt_labels) on one device -> (src_frames, src_lbls,
+    views)."""
+    src_images, src_labels, tgt_images, tgt_labels = batch
+    src_frames, src_lbls = pipelines.augment_source_batch(
+        generator, src_images, src_labels, crop_hw=scfg.crop_hw,
+        scale_range=scfg.src_scale, hflip=scfg.src_hflip,
+        jitter=scfg.src_jitter, blur=scfg.src_blur,
+        mean=scfg.src_mean, std=scfg.src_std)
+    views = augment_target(scfg, generator, tgt_images, tgt_labels)
+    return src_frames, src_lbls, views
 
 
 def make_sac_views_step(scfg: StepConfig, debug=False, group=None):

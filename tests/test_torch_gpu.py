@@ -26,7 +26,11 @@ exchanges), their rows of the probabilities within 1e-4 of the unsharded
 forward's in f32 without TF32.  On a host with several cards, a NCCL
 world of one rank a card does the same with device-to-device exchanges,
 and the infer CLI spawns a rank per card (``--spatial 2``) and exports
-what one process exports.
+what one process exports.  Remat: under ``TPU.REMAT convs`` a shallow
+r101's forward on the card keeps less than under none and more than under
+block (the conv outputs), and its backward replays no convolution but the
+stem's; the SAC views step with Adam agrees with the CPU's (the
+tolerances of ``chip_smoke.check_adam_agreement``).
 
 Without a card every test here skips.  Tolerances, absolute: NLL 1e-4 (a
 few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
@@ -655,3 +659,42 @@ def test_infer_cli_spawns_one_rank_per_card(cuda, tmp_path, monkeypatch):
         a, b = (png.read(str(tmp_path / d / (ds.name(i) + ".png"))).pixels
                 for d in ("many", "one"))
         assert (a == b).mean() >= 0.99, ds.name(i)
+
+
+def test_convs_mode_keeps_the_conv_outputs_on_the_card(cuda):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Convs(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Convs.n += func is torch.ops.aten.convolution.default
+            return func(*args, **(kwargs or {}))
+
+    x = torch.rand(2, 128, 128, 3, device=cuda)
+    kept, replayed = {}, {}
+    for mode in ("none", "block", "convs"):
+        model = build_model("deeplabv2_resnet101", 19, dtype=torch.bfloat16,
+                            remat=mode, layers=(1, 1, 2, 1), device=cuda,
+                            generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        _, up = model(x, train=False, update_stats=True)
+        torch.cuda.synchronize()
+        kept[mode] = torch.cuda.memory_allocated() - before
+        Convs.n = 0
+        with Convs():
+            up.float().square().mean().backward()
+        replayed[mode] = Convs.n
+        del model, up
+        torch.cuda.empty_cache()
+    assert kept["block"] < kept["convs"] < kept["none"], kept
+    # the stem's conv and the 19 of the blocks (projections included)
+    assert replayed == {"none": 0, "block": 20, "convs": 1}, replayed
+
+
+def test_adam_views_step_matches_cpu(cuda):
+    import chip_smoke
+
+    out = chip_smoke.check_adam_agreement(cuda)
+    assert out["grad_rel_l2_worst"] < 1e-3

@@ -71,7 +71,10 @@ def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
                  "data/id_mappers.py", "data/png16.py",
                  "tools/convert_train_ids.py", "tools/make_split_lists.py",
                  "tools/check_dataset.py", "tools/pack_dataset.py",
-                 "tools/recipe.py", "core/mesh.py", "nn/spatial.py"):
+                 "tools/recipe.py", "core/mesh.py", "nn/spatial.py",
+                 "tools/flagship.py", "tools/profile_step.py",
+                 "tools/compare_refine_res.py", "tools/conv_roofline.py",
+                 "tools/op_traffic.py"):
         assert REPO / "dasac_tpu_torch" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}

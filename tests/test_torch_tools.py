@@ -1,5 +1,7 @@
 """The port's offline tools (``dasac_tpu_torch/tools``: ``evaluate_miou``,
-``compute_is_weights``) against dasac_tpu's on the same files.
+``compute_is_weights``) against dasac_tpu's on the same files, and its
+step tools (``profile_step``, ``compare_refine_res``, ``conv_roofline``,
+``op_traffic``) on the CPU at the tiny size.
 
   * ``evaluate_miou``: prediction trees in every format the scorer detects
     (palette trainIds as the infer CLI exports them, gray trainIds, gray
@@ -12,12 +14,28 @@
   * ``compute_is_weights``: equal weight dicts, and each package's
     ``load_sample_weights`` reads the other's file, in both formats.
 
+Step tools (each ``main(argv, device="cpu")``, ``tiny`` at 32x64, 2
+source frames, one group of 2 views):
+
+  * ``profile_step`` times the stages dasac_tpu's does (the names of its
+    docstring's table), each > 0, under remat none and convs, and a subset;
+  * ``compare_refine_res`` runs both arms from the same state and keeps
+    ``src_loss_ce`` equal at their first step; ``--json`` writes what it
+    returns;
+  * ``conv_roofline``'s shape table equals dasac_tpu's
+    ``flagship_convs()``; on two small shapes its rows are the FLOPs over
+    the measured ms and its floor their sum; the peak comes by card name;
+  * ``op_traffic`` counts the bytes of a small function as worked out by
+    hand, and ranks a tiny step's ops;
+  * every step tool raises without a card when no device is given.
+
 Files are written with PIL.  Wall time of this file on the CPU host the
-tier-1 tests run on: ~5 s run alone.
+tier-1 tests run on: ~10 s run alone.
 """
 
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -26,12 +44,18 @@ from PIL import Image
 from dasac_tpu.data import sampler as jsampler
 from dasac_tpu.data.category import train_palette
 from dasac_tpu.tools import compute_is_weights as jis
+from dasac_tpu.tools import conv_roofline as jroofline
 from dasac_tpu.tools import evaluate_miou as jeval
+from dasac_tpu.tools import profile_step as jprofile
 from dasac_tpu_torch.data import sampler as tsampler
 from dasac_tpu_torch.data.category import (cs_to_trainid_table,
                                            trainid_to_cs_table)
+import torch
+from dasac_tpu_torch.tools import compare_refine_res
 from dasac_tpu_torch.tools import compute_is_weights as tis
+from dasac_tpu_torch.tools import conv_roofline
 from dasac_tpu_torch.tools import evaluate_miou as teval
+from dasac_tpu_torch.tools import op_traffic, profile_step
 
 C = 19
 HW = (24, 40)
@@ -163,3 +187,132 @@ def test_compute_is_weights_matches_jax_both_formats(trees, tmp_path):
         assert jsampler.load_sample_weights(t_out) == ref
         assert tsampler.load_sample_weights(j_out) == ref
         assert tsampler.load_sample_weights(t_out) == ref
+
+
+# ---------------------------------------------------------------------------
+# step tools
+# ---------------------------------------------------------------------------
+
+TINY_STEP = ["--arch", "tiny", "--hw", "32", "64", "--batch", "2",
+             "--groups", "1", "--group-size", "2"]
+
+
+def _jax_stages():
+    """The stages dasac_tpu's profile_step times: its docstring's table."""
+    return {m.group(1) for m in re.finditer(r"^  (\w+)\s{2,}\S",
+                                            jprofile.__doc__, re.M)}
+
+
+def _json_lines(out):
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+@pytest.mark.parametrize("remat", ["none", "convs"])
+def test_profile_step_times_the_stages_jax_times(capsys, remat):
+    results = profile_step.main(TINY_STEP + ["--iters", "1", "--remat",
+                                             remat], device="cpu")
+    assert set(results) == _jax_stages() == set(profile_step.STAGES)
+    assert all(v > 0 for v in results.values())
+    lines = _json_lines(capsys.readouterr().out)
+    assert {r["stage"]: r["ms"] for r in lines} == results
+    assert all(r["card"] == "cpu" and r["remat"] == remat for r in lines)
+
+
+def test_profile_step_stage_subset():
+    results = profile_step.main(
+        TINY_STEP + ["--iters", "1", "--stages", "aug", "refine",
+                     "--refine-res", "full", "--refine-dtype", "float32",
+                     "--resize-method", "gather"], device="cpu")
+    assert set(results) == {"aug", "refine"}
+
+
+def test_compare_refine_res_keeps_the_source_branch_equal(tmp_path, capsys):
+    path = str(tmp_path / "crr.json")
+    out = compare_refine_res.main(TINY_STEP + [
+        "--warmup", "2", "--steps", "3", "--every", "2", "--batches", "2",
+        "--json", path], device="cpu")
+    rows = out["trajectories"]
+    assert [r["step"] for r in rows["full"]] == [1, 2] == [
+        r["step"] for r in rows["stride8"]]
+    assert rows["full"][0]["src_loss_ce"] == rows["stride8"][0]["src_loss_ce"]
+    assert set(out["worst_abs_delta"]) == {"src_loss_ce", "self_ce",
+                                           "teacher_diff", "pseudo_cover"}
+    assert all(np.isfinite(v) for r in rows["full"] + rows["stride8"]
+               for v in r.values())
+    with open(path) as f:
+        assert json.load(f) == json.loads(json.dumps(out))
+    assert "worst |Δ|" in capsys.readouterr().out
+
+
+def test_conv_roofline_shape_table_equals_jax():
+    assert conv_roofline.flagship_convs() == jroofline.flagship_convs()
+
+
+def test_conv_roofline_rows_and_floor_on_small_shapes(monkeypatch):
+    shapes = [("a3x3d2", (8, 8), 4, 8, 3, 2, 3),
+              ("b1x1", (4, 6), 8, 4, 1, 1, 1)]
+    monkeypatch.setattr(conv_roofline, "flagship_convs", lambda: shapes)
+    out = conv_roofline.main(["--batch", "2", "--iters", "1", "--peak-tf",
+                              "0.5"], device="cpu")
+    assert [r["conv"] for r in out["rows"]] == ["a3x3d2", "b1x1"]
+    for row, (_, hw, cin, cout, k, _, mult) in zip(out["rows"], shapes):
+        flops = 3 * 2 * 2 * hw[0] * hw[1] * k * k * cin * cout
+        assert np.isclose(row["tf_s"] * row["ms"] * 1e9, flops)
+        assert np.isclose(row["share_of_peak"], row["tf_s"] / 0.5)
+        assert np.isclose(row["ms_per_step"], row["ms"] * mult * 9 / 8)
+    floor = out["floor"]
+    assert np.isclose(floor["conv_bound_floor_ms"],
+                      sum(r["ms_per_step"] for r in out["rows"]))
+    assert floor["peak_tf"] == 0.5 and floor["card"] == "cpu"
+
+
+@pytest.mark.parametrize("card,peak", [
+    ("NVIDIA H100 80GB HBM3, 700.00 W", 989.4),
+    ("NVIDIA H100 PCIe, 350.00 W", 756.5),
+    ("NVIDIA H100 NVL, 400.00 W", 835.5), ("cpu", None)])
+def test_conv_roofline_peak_by_card_name(card, peak):
+    assert conv_roofline.peak_tf(card) == peak
+    assert conv_roofline.peak_tf(card, override=123.0) == 123.0
+
+
+def test_op_traffic_counts_the_bytes_worked_out_by_hand():
+    x = torch.ones(4, 8)                          # 128 B f32
+    w = torch.ones(8, 16, dtype=torch.bfloat16)   # 256 B bf16
+
+    def fn():
+        y = x * 2          # reads x, writes 128 B
+        v = y.view(32)     # a view: nothing
+        y.add_(1)          # reads y, writes y in place: 128 B
+        v.sum()            # reads 128 B, writes 4 B
+        torch.empty(4, 8)  # an allocation writes nothing
+        return x.to(torch.bfloat16) @ w   # 128 -> 64 B; mm 64 + 256 -> 128
+
+    t = op_traffic.record(fn)
+    assert t.ops == {
+        "aten.mul": {"calls": 1, "read": 128, "written": 128},
+        "aten.add_": {"calls": 1, "read": 128, "written": 128},
+        "aten.sum": {"calls": 1, "read": 128, "written": 4},
+        "aten.empty": {"calls": 1, "read": 0, "written": 0},
+        "aten._to_copy": {"calls": 1, "read": 128, "written": 64},
+        "aten.mm": {"calls": 1, "read": 320, "written": 128}}
+    assert t.totals() == (832, 452)
+    assert t.written_by_dtype == {"float32": 260, "bfloat16": 192}
+    top = op_traffic.report(t, 2)["top"]
+    assert [r["op"] for r in top] == ["aten.mul", "aten.add_"]
+
+
+def test_op_traffic_ranks_the_ops_of_a_step(capsys):
+    out = op_traffic.main(TINY_STEP + ["--top", "5"], device="cpu")
+    written = [r["written_gb"] for r in out["top"]]
+    assert len(written) == 5 and written == sorted(written, reverse=True)
+    assert out["total_written_gb"] > sum(written) > 0
+    assert out["total_read_gb"] > 0 and out["card"] == "cpu"
+    assert _json_lines(capsys.readouterr().out)[-1]["ops"] == out["ops"]
+
+
+@pytest.mark.parametrize("tool", [profile_step, compare_refine_res,
+                                  conv_roofline, op_traffic])
+def test_step_tools_raise_without_a_device(monkeypatch, tool):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main([])

@@ -282,11 +282,12 @@ def test_trainer_loads_init_model(root, tmp_path, torchvision_sd, capsys,
 
 @pytest.mark.parametrize("key,value", [
     ("TPU.MESH_DEVICES", "2"), ("TPU.PARTITION", "gspmd"),
-    ("TPU.MESH_SP", "2"), ("TPU.REMAT", "block")])
+    ("TPU.MESH_SP", "2"), ("TPU.REMAT", "everything")])
 def test_multi_device_settings_raise(key, value):
-    """Height sharding and remat still raise, naming their ROADMAP items;
-    a data-parallel mesh is no longer refused: it is the number of ranks
-    the train CLI spawns (tests/test_torch_dist.py runs them)."""
+    """Height sharding still raises, naming its ROADMAP item, and a remat
+    mode other than none/block/convs raises ``remat_mode``'s error; a
+    data-parallel mesh is no longer refused: it is the number of ranks the
+    train CLI spawns (tests/test_torch_dist.py runs them)."""
     tconfig.cfg_from_list([key, value, "TRAIN.NUM_GROUPS", "2"])
     if key == "TPU.MESH_DEVICES":
         assert loop.mesh_size(tconfig.cfg, available=1) == 2
@@ -294,8 +295,11 @@ def test_multi_device_settings_raise(key, value):
         with pytest.raises(ValueError, match="one process per device"):
             loop.Trainer(None, tconfig.cfg, device="cpu")
         return
-    item = "items 1 and 16" if key == "TPU.REMAT" else "item 10"
-    with pytest.raises(NotImplementedError, match=item):
+    if key == "TPU.REMAT":
+        with pytest.raises(ValueError, match="remat must be none/block/convs"):
+            loop.mesh_size(tconfig.cfg, available=1)
+        return
+    with pytest.raises(NotImplementedError, match="item 10"):
         loop.mesh_size(tconfig.cfg, available=1)
 
 
