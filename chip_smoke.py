@@ -183,7 +183,7 @@ no result line:
               frame (the padded canvas for the padded frame; its second
               call timed beside the ranks' ms): f32
               probabilities within 1e-4 and labels equal on >= 99.99% of
-              pixels, bf16 labels on >= 99.8%; every rank exchanged rows.
+              pixels, bf16 labels on >= 99.9%; every rank exchanged rows.
               Per rank: ms per frame, exchanges and bytes a forward by
               layer kind, peak GB, the transport;
  19. remat_opt  remat (``TPU.REMAT``) and ``MODEL.OPT adam``, at full
@@ -196,9 +196,13 @@ no result line:
               CE launches a step, all bulk, the same in every mode; (b)
               the ABN step under none and block, cuDNN deterministic: on
               the flagship model (phase 6's frames) the step's source
-              half alone leaves block's BN buffers equal to none's and
-              every ``num_batches_tracked`` at 1 (the replay updated
-              nothing), then 6 steps timed; on a shallow f32 r101 at the
+              half alone, with autotuning off, leaves block's BN buffers
+              equal to none's, every ``num_batches_tracked`` at 1 (the
+              replay updated nothing) and every gradient within a
+              relative L2 error of 2e-2 of none's (``remat_drift`` first
+              shows why autotuning must be off: cuDNN's plans are kept
+              per thread and the replay runs in autograd's), then 6
+              steps timed; on a shallow f32 r101 at the
               same frames 2 whole steps leave every running statistic
               within rtol 1e-3 of none's and ``num_batches_tracked`` 4 in
               both; (c) the ABN step of each VGG
@@ -218,7 +222,28 @@ no result line:
               ``compare_refine_res`` cut to 20 + 20 + 20 steps
               (``src_loss_ce`` equal in the arms at their first step);
               cuDNN autotuning off before each, which the tool turns on;
-              CE launches per tool exact and bulk.
+              CE launches per tool exact and bulk;
+ 21. train_mesh  height-sharded training (``TPU.PARTITION gspmd``,
+              ``TPU.MESH_SP``; ``make_gspmd_*``): (a) a NCCL world of one
+              as gspmd (1, 1), the flagship SAC views and ABN frames
+              steps against the one-process steps, cuDNN deterministic:
+              losses bit-equal, state within twice two one-process runs'
+              difference; (b) 4 spawned gloo ranks sharing the card, as
+              (1, 2) (ranks 2 and 3 sit it out) and (2, 2): one f32 SAC
+              step (2 source frames + 2 groups of 4 views, 512x1024) and
+              one f32 ABN step (4 + 4 frames, 640x640 crops) of the
+              full-width r101, and that ABN step of a shallow r101 (one
+              block a stage), from the raw batch, without TF32, held in
+              the parent against the unsharded global step: losses,
+              parameters, BN buffers, teacher and running_conf within
+              rtol 2e-4 / atol 2e-5 (the chaotic full-depth ABN step on
+              its source loss alone, see phase 16); then 3 flagship bf16
+              SAC steps
+              (8 + 2 x 4) under REMAT block as (2, 2): finite,
+              ``pseudo_cover`` > 0; every case ends with every rank's
+              state equal.  Per rank and step: ms, peak GB, exchanges
+              and bytes forward and backward by kind, BN collectives, CE
+              launches by path.
 Each phase prints one JSON line with the card's name and power limit.
 Phases 10, 13, 14, 15, 17 and 18 call each entry point with cuDNN autotuning
 off, as a new process starts, and check that the entry point turned it on.
@@ -231,11 +256,14 @@ line carry the trainer's launches (``launches_train``), the VGG steps'
 world's steps and CLI stages, each gloo rank's steps), phase 17's by
 train stage (``launches_recipe``), phase 18's (``launches_infer_mesh``:
 inference launches no CE kernel, so 0), phase 19's by part
-(``launches_remat_opt``) and phase 20's by tool (``launches_step_tools``).
+(``launches_remat_opt``), phase 20's by tool (``launches_step_tools``) and
+phase 21's (``launches_train_mesh``: the NCCL world's steps, each gloo
+rank's cases, by path).
 
 ``python3 chip_smoke.py --infer-mesh-only`` runs phase 18 alone;
-``--remat-only`` and ``--step-tools-only`` build the CE kernels and run
-phase 19 or 20 alone (both flags: both phases).
+``--remat-only``, ``--step-tools-only`` and ``--train-mesh-only`` build
+the CE kernels and run phase 19, 20 or 21 alone (several flags: those
+phases).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -3075,14 +3103,14 @@ MESH_SETTINGS = {"single": dict(scales=(1.0,), fuse="full"),
 # own frame (the 2 x 2 combined mesh, spatial=2: two 2-rank frames),
 # "world": all 4 ranks on one frame (spatial=-1); "pad": the 1050-row frame
 # over the 4 ranks.  f32 without TF32: probabilities within 1e-4, labels
-# equal on >= 99.99% of pixels; bf16: labels on >= 99.8% (two runs of the
-# same case gave 99.932% and 99.995%: cuDNN's bf16 algorithms differ by a
+# equal on >= 99.99% of pixels; bf16: labels on >= 99.9% (runs of the
+# same case gave 99.932% to 99.998%: cuDNN's bf16 algorithms differ by a
 # strip's shape, and these random weights leave many near-ties; PERF.md)
 MESH_CASES = [(dt, st, lay) for dt in ("float32", "bfloat16")
               for st in MESH_SETTINGS for lay in ("pair", "world")] + [
     ("float32", "single", "pad")]
 MESH_TOL = {"float32": dict(prob_abs=1e-4, label_share=0.9999),
-            "bfloat16": dict(prob_abs=None, label_share=0.998)}
+            "bfloat16": dict(prob_abs=None, label_share=0.999)}
 
 
 def mesh_frames():
@@ -3480,16 +3508,142 @@ def remat_sac(ce, ce_triton, device, card):
     return out, launches
 
 
+def _device_kernels(prof):
+    """{kernel name: launches} of the device kernels ``prof`` traced."""
+    import torch
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def remat_drift(ce, ce_triton, device, card):
+    """(b0) Why the bf16 ABN source half's gradients under block can
+    differ from none's: cuDNN keeps its chosen plans per thread, and the
+    replay runs in autograd's thread, not the forward's; an autotuned
+    choice (timed) can differ between the two threads, a heuristic one
+    does not.  The flagship model's source half (one live-BN forward and
+    its backward) under none and block, cuDNN deterministic, with
+    autotuning off (on the source half's frames, before any plan exists
+    for them) and then on (a frame fewer: fresh shapes, timed in both
+    threads): each convolution's replayed output
+    held bit for bit against its forward output (a checksum from a forward
+    hook; the replay is a conv's second call, early stop off), the
+    allocator's out-of-memory events in the backward (a cuDNN workspace
+    that does not fit makes cuDNN take its next plan), the device kernels
+    of the forward
+    and of the backward under the profiler (block's backward less none's
+    are the replay's; a replay kernel the forward did not launch is
+    another algorithm), and the gradients' worst relative L2 difference.
+    Reported here; ``remat_abn`` asserts the bound with autotuning off,
+    on the heuristic plans chosen here.  Launches 1 + 1 a run, all
+    bulk."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from dasac_tpu_torch.nn.layers import Conv2d
+    from dasac_tpu_torch.sac import core as sac_core
+    from dasac_tpu_torch.train import steps
+
+    scfg = abn_step_config()
+    batch = abn_batch(device)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out, bench0 = {}, torch.backends.cudnn.benchmark
+    reset_counts(ce, ce_triton)
+    try:
+        torch.backends.cudnn.deterministic = True
+        # heuristic plans first, on the source half's own shapes (the
+        # plans ``remat_abn`` then reuses), then autotuned ones on a frame
+        # fewer (shapes no plan was chosen for yet in either thread)
+        for bench, frames in ((False, ABN_SRC[0]), (True, ABN_SRC[0] - 1)):
+            torch.backends.cudnn.benchmark = bench
+            grads, kernels, replay = {}, {}, {}
+            for mode in ("none", "block"):
+                state = flagship_state(device, remat=mode)
+                seen = {}
+
+                def hook(mod, inp, y, seen=seen):
+                    # a checksum of each call's output: the forward's and
+                    # the replay's, compared bit for bit below
+                    seen.setdefault(mod, []).append(
+                        y.detach().contiguous().view(torch.int16)
+                        .to(torch.int64).mul_(7919).sum().item())
+
+                convs = {m: k for k, m in state.model.named_modules()
+                         if isinstance(m, Conv2d)}
+                handles = [m.register_forward_hook(hook) for m in convs]
+                src, lbl = (a[:frames] for a in steps.augment_abn(
+                    scfg, torch.Generator(device=device).manual_seed(
+                        SEED + 1), batch)[:2])
+                with profile(activities=acts) as prof:
+                    _, up = state.model(src, train=True, update_stats=True)
+                    loss = sac_core.cross_entropy_mean(up, lbl,
+                                                       impl="kernel")
+                    torch.cuda.synchronize()
+                fwd = _device_kernels(prof)
+                ooms0 = torch.cuda.memory_stats().get("num_ooms", 0)
+                free_gb = torch.cuda.mem_get_info()[0] / 1e9
+                # the whole replay runs (no early stop), so every replayed
+                # conv's hook fires
+                with profile(activities=acts) as prof, \
+                        set_checkpoint_early_stop(False):
+                    loss.backward()
+                    torch.cuda.synchronize()
+                kernels[mode] = (fwd, _device_kernels(prof))
+                for h in handles:
+                    h.remove()
+                if mode == "block":
+                    pairs = {convs[m]: v for m, v in seen.items()
+                             if len(v) == 2}
+                    diff = sorted(k for k, v in pairs.items()
+                                  if v[0] != v[1])
+                    replay.update(
+                        convs=len(convs), replayed=len(pairs),
+                        replay_differs=diff,
+                        free_gb_before_backward=free_gb,
+                        allocator_ooms_in_backward=torch.cuda.memory_stats()
+                        .get("num_ooms", 0) - ooms0)
+                grads[mode] = {k: p.grad.detach().cpu() for k, p in
+                               state.model.named_parameters()}
+                del state, src, lbl, up, loss, seen, convs, prof
+                torch.cuda.empty_cache()
+            fwd_names = set(kernels["block"][0])
+            replay_only = (set(kernels["block"][1])
+                           - set(kernels["none"][1]))
+            rel = {k: _rel_l2(g, grads["none"][k])
+                   for k, g in grads["block"].items()}
+            worst_k = max(rel, key=rel.get)
+            out["autotuned" if bench else "heuristic"] = dict(
+                replay, frames=frames, grad_rel_l2_worst=rel[worst_k],
+                grad_rel_l2_worst_param=worst_k,
+                forward_kernel_names=len(fwd_names),
+                replay_kernel_names=len(replay_only),
+                replay_kernels_not_in_forward=sorted(replay_only
+                                                     - fwd_names),
+                forward_kernels_none_vs_block_equal=(
+                    kernels["none"][0] == kernels["block"][0]))
+            del grads
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = bench0
+    launches = read_counts(ce, ce_triton, {"nll_fwd": 4, "nll_bwd": 4})[0]
+    log("remat_drift: %s" % json.dumps(dict(out, card=card)))
+    return out, {"all": launches}
+
 def remat_abn(ce, ce_triton, device, card):
     """(b) The ABN step under none and block, cuDNN deterministic.  On
     the flagship model (phase 6's state and frames, bf16): the step's
     source half alone (one live-BN forward and its backward, no update)
     leaves block's BN buffers equal to none's (rtol 1e-3 / atol 1e-6; the
     same forward arithmetic) and every ``num_batches_tracked`` at 1, so
-    the replay in the backward updated nothing; the gradients' worst
-    relative L2 difference is reported (bf16: the replayed convs round
-    differently, and live BN's backward magnifies it in the BN biases);
-    then ``REMAT_ABN_STEPS`` steps timed.  On a shallow r101 in f32 (every
+    the replay in the backward updated nothing; with cuDNN autotuning
+    off (the replay's convolutions then run the forward's algorithms, see
+    ``remat_drift``) every gradient within a relative L2 error of 2e-2 of
+    none's (tests/test_remat_modes.py's bound); then ``REMAT_ABN_STEPS``
+    steps timed.  On a shallow r101 in f32 (every
     replayed op rounds as the first time) at the same frames: 2 whole
     steps from the same state leave every running statistic within rtol
     1e-3 / atol 1e-6 of none's and ``num_batches_tracked`` at 4 in both.
@@ -3521,6 +3675,11 @@ def remat_abn(ce, ce_triton, device, card):
         state = flagship_state(device, remat=mode)
         step = steps.make_abn_step(scfg, device=device)
         reset_counts(ce, ce_triton)
+        # autotuning off: the replay runs in autograd's thread, whose cuDNN
+        # plan cache is its own; heuristic plans are the same in both
+        # threads, timed ones may not be (``remat_drift``)
+        bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
         torch.backends.cudnn.deterministic = True
         try:
             src, lbl = steps.augment_abn(scfg, torch.Generator(
@@ -3530,6 +3689,7 @@ def remat_abn(ce, ce_triton, device, card):
             del src, lbl, up
         finally:
             torch.backends.cudnn.deterministic = False
+            torch.backends.cudnn.benchmark = bench
         half[mode] = buffers(state.model)
         grads[mode] = {k: p.grad.detach().cpu() for k, p in
                        state.model.named_parameters()}
@@ -3566,8 +3726,13 @@ def remat_abn(ce, ce_triton, device, card):
         torch.cuda.empty_cache()
     same_buffers(half["block"], half["none"], 1, "source half")
     same_buffers(two["block"], two["none"], 4, "shallow f32, 2 steps")
-    out["source_half_grad_rel_l2_worst"] = max(
-        _rel_l2(g, grads["none"][k]) for k, g in grads["block"].items())
+    rel = {k: _rel_l2(g, grads["none"][k]) for k, g in grads["block"].items()}
+    worst_k = max(rel, key=rel.get)
+    out["source_half_grad_rel_l2_worst"] = rel[worst_k]
+    out["source_half_grad_rel_l2_worst_param"] = worst_k
+    need(rel[worst_k] < 2e-2, "remat abn source half: gradient of %s off "
+         "none's by rel L2 %.3e (tests/test_remat_modes.py's bound 2e-2)"
+         % (worst_k, rel[worst_k]))
     out["shallow_f32_two_steps_max_abs_diff"] = max(
         float((two["block"][k] - v).abs().max())
         for k, v in two["none"].items() if v.is_floating_point())
@@ -3670,13 +3835,13 @@ def remat_adam(ce, ce_triton, device, card):
 
 
 def run_remat_opt(ce, ce_triton, device, card, vgg_none=None):
-    """Phase 19: (a) ``remat_sac``, (b) ``remat_abn``, (c) ``remat_vgg``,
-    (d) ``remat_adam``.  Returns the CE launches by part."""
+    """Phase 19: (a) ``remat_sac``, (b0) ``remat_drift``, (b) ``remat_abn``,
+    (c) ``remat_vgg``, (d) ``remat_adam``.  Returns the CE launches by part."""
     import torch
 
     torch.backends.cudnn.benchmark = True
     launches, part_s = {}, {}
-    for part, args in ((remat_sac, ()), (remat_abn, ()),
+    for part, args in ((remat_sac, ()), (remat_drift, ()), (remat_abn, ()),
                        (remat_vgg, (vgg_none,)), (remat_adam, ())):
         t0 = time.perf_counter()
         name = part.__name__
@@ -3764,6 +3929,388 @@ def run_step_tools(ce, ce_triton, device, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: height-sharded training (TPU.PARTITION gspmd, TPU.MESH_SP)
+# ---------------------------------------------------------------------------
+
+TMESH_BASE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_train_mesh")
+TMESH_RANKS = 4      # (b)'s gloo ranks on the one card
+TMESH_LAYOUTS = {"1x2": (1, 2), "2x2": (2, 2)}
+# (b)'s f32 steps, cut so that 4 ranks and then the unsharded reference
+# fit on the card: SAC 2 source frames + 2 groups of SAC_GROUP_SIZE views
+# at 512x1024 (groups must split over the data axis), ABN 4 + 4 frames
+TMESH_SAC_SRC = 2
+TMESH_ABN = ((4, 1052, 1914), (4, 1024, 2048))
+TMESH_BF16_STEPS = 3  # flagship bf16 SAC steps under REMAT block, (2, 2)
+TMESH_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_gspmd.py's bound
+# (b)'s f32 cases a layout: (name, step, model keywords).  The full-depth
+# ABN step is chaotic (``DDP_KINDS``): it is held on its forward, the
+# shallow r101's (one block a stage, full width) on everything
+TMESH_CASES = (("sac", "sac", {}), ("abn", "abn", {}),
+               ("abn_shallow", "abn", dict(layers=(1, 1, 1, 1))))
+
+
+def tmesh_batch(kind, device):
+    """(b)'s raw global batch of ``kind``: the flagship SAC batch cut to
+    ``TMESH_SAC_SRC`` source frames, or the ABN batch at ``TMESH_ABN``."""
+    if kind == "sac":
+        src_i, src_l, tgt_i, tgt_l = sac_batch(device)
+        return src_i[:TMESH_SAC_SRC], src_l[:TMESH_SAC_SRC], tgt_i, tgt_l
+    return abn_batch(device, *TMESH_ABN)
+
+
+def tmesh_step(kind, device, groups=None, f32=True):
+    """The train step of ``kind`` over ``groups`` (a gspmd world) or, with
+    none, the one-process global step.  SAC keeps pixels above a
+    confidence of 0.01 (phase 3's setting: these random weights' near-
+    uniform probabilities stay under the flagship's 0.2, and phase 4's
+    ``pseudo_cover`` is 0), so that the self-training loss has labels;
+    f32 SAC refines in f32 (nothing rounded to bf16 between the two)."""
+    from dasac_tpu_torch.train import steps
+
+    if kind == "sac":
+        scfg = sac_step_config()._replace(run_conf_lower=0.01)
+        if f32:
+            scfg = scfg._replace(refine_dtype="float32")
+        if groups is None:
+            return steps.make_sac_step(scfg, device)
+        return steps.make_gspmd_sac_step(scfg, groups, device)
+    if groups is None:
+        return steps.make_abn_step(abn_step_config(), device)
+    return steps.make_gspmd_abn_step(abn_step_config(), groups, device)
+
+
+def _path_counts(ce):
+    return {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
+
+
+def _paths_since(ce, paths0):
+    return {k: {p: ce.PATH_LAUNCHES[k][p] - paths0[k][p] for p in v}
+            for k, v in paths0.items()}
+
+
+def _step_calls(calls0):
+    """A step's collectives: exchanges and bytes forward (replays
+    included) and backward by kind, BN reductions forward and backward,
+    the other sums."""
+    from dasac_tpu_torch.core import dist
+
+    d = {k: dist.CALLS[k] - v for k, v in calls0.items()}
+    return dict(
+        exchange_fwd={k: (d["exchange_" + k], d["exchange_bytes_" + k])
+                      for k in dist.EXCHANGE_KINDS},
+        exchange_bwd={k: (d["exchange_bwd_" + k],
+                          d["exchange_bwd_bytes_" + k])
+                      for k in dist.EXCHANGE_KINDS},
+        bn=d["bn"], bn_grad=d["bn_grad"], sums=d["sum"])
+
+
+def run_train_mesh_one_rank(ce, ce_triton, device, card):
+    """(a) The flagship SAC views step and ABN frames step in a NCCL world
+    of one built as gspmd ``(1, 1)`` (``make_gspmd_*``: every collective
+    runs over the one rank), then the same state and inputs through the
+    one-process step, twice; cuDNN deterministic.  The losses are
+    bit-equal (the per-class diagnostic is not held: its CUDA
+    ``scatter_add_`` adds in any order), and the state differs from the
+    one-process one by no more than twice what two one-process runs
+    differ by (0 when they agree bit for bit).  Returns the launches, 2 + 2 and 2 + 1 a step, bulk."""
+    import torch
+
+    from dasac_tpu_torch.core import dist
+    from dasac_tpu_torch.core.mesh import TrainLayout, train_groups
+    from dasac_tpu_torch.train import steps
+    from dasac_tpu_torch.utils.sys_tools import find_free_port
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(find_free_port()),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    dist.init(dist.launch_from_env(env), device)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    out, launches = dict(phase="train_mesh_one_rank", card=card,
+                         backend=torch.distributed.get_backend()), {}
+    try:
+        groups = train_groups(TrainLayout(1, 1, True), 0, dist.group())
+        for kind in ("sac", "abn"):
+            inputs = ddp_step(kind, None)[1](device, 0, 1)
+            per_step = ({"nll_fwd": 2, "nll_bwd": 2} if kind == "sac"
+                        else {"nll_fwd": 2, "nll_bwd": 1})
+            runs = {}
+            for name in ("gspmd", "plain", "plain_again"):
+                g = groups if name == "gspmd" else None
+                state = flagship_state(device, group=g and g.world)
+                if kind == "sac":
+                    step = (steps.make_gspmd_sac_views_step(
+                        sac_step_config(), g) if g else
+                        steps.make_sac_views_step(sac_step_config()))
+                else:
+                    step = (steps.make_gspmd_abn_frames_step(
+                        abn_step_config(), g) if g else
+                        steps.make_abn_frames_step(abn_step_config()))
+                reset_counts(ce, ce_triton)
+                calls0 = dict(dist.CALLS)
+                m = step(state, *inputs)
+                torch.cuda.synchronize()
+                got = read_counts(ce, ce_triton, per_step)[0]
+                runs[name] = dict(
+                    metrics={k: v.detach().clone() for k, v in m.items()},
+                    state=state_snapshot(state),
+                    calls={k: dist.CALLS[k] - calls0[k] for k in calls0})
+                if name == "gspmd":
+                    launches[kind] = got
+                del state, m, step
+                torch.cuda.empty_cache()
+            g, a, b = runs["gspmd"], runs["plain"], runs["plain_again"]
+            # the per-class diagnostic's scatter_add_ adds in any order
+            need(all(torch.equal(g["metrics"][k], a["metrics"][k])
+                     for k in a["metrics"] if k != "self_ce_per_class"),
+                 "train_mesh_one_rank %s: the losses differ: %s vs %s" % (
+                     kind, g["metrics"], a["metrics"]))
+            d_gspmd = _max_abs_diff(g["state"], a["state"])
+            d_floor = _max_abs_diff(b["state"], a["state"])
+            need(d_gspmd <= 2 * d_floor,
+                 "train_mesh_one_rank %s: state differs by %r under gspmd, "
+                 "by %r between two one-process runs" % (kind, d_gspmd,
+                                                          d_floor))
+            need(g["calls"]["sum"] >= 2 and not a["calls"]["sum"],
+                 "train_mesh_one_rank %s: collectives %s / %s" % (
+                     kind, g["calls"], a["calls"]))
+            out[kind] = dict(max_abs_diff_gspmd_vs_plain=d_gspmd,
+                             max_abs_diff_plain_vs_plain=d_floor,
+                             collectives_a_step={
+                                 k: v for k, v in g["calls"].items() if v})
+            del runs, g, a, b, inputs
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy()
+    log("train_mesh_one_rank: %s" % json.dumps(out))
+    return launches
+
+
+def tmesh_rank(rank, addr, card, t_spawn, device):
+    """(b) One of ``TMESH_RANKS`` gloo ranks sharing the card: for each
+    layout of ``TMESH_LAYOUTS`` (the ranks past it sit it out) one f32 SAC
+    and one f32 ABN step of the full-width r101 from the raw batch (its
+    data slice; the draws the global batch's), rank 0 writing its state
+    and metrics under ``TMESH_BASE``; then ``TMESH_BF16_STEPS`` flagship
+    bf16 SAC steps under REMAT block as (2, 2).  Every case ends with
+    every rank's state equal.  Writes what it measured: step ms, peak GB,
+    a step's collectives, CE launches by path."""
+    import torch
+    import torch.distributed as tdist
+
+    from dasac_tpu_torch.core import dist
+    from dasac_tpu_torch.core.mesh import TrainLayout, train_groups
+    from dasac_tpu_torch.ops import ce
+
+    start_s = time.time() - t_spawn
+    # this script's settings (``main``), which a new process does not have
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.benchmark = False
+    device = torch.device(device)
+    device = torch.device(device.type, device.index or 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    t0 = time.perf_counter()
+    dist.init(dist.Launch(addr, TMESH_RANKS, rank, rank), device,
+              backend="gloo")
+    out = dict(rank=rank, card=card, start_s=start_s,
+               setup_s=time.perf_counter() - t0, cases={})
+    try:
+        # every rank builds every group, in the same order
+        worlds = {}
+        for name, (n_data, n_sp) in TMESH_LAYOUTS.items():
+            n = n_data * n_sp
+            world = (dist.group() if n == TMESH_RANKS
+                     else tdist.new_group(list(range(n))))
+            groups = train_groups(TrainLayout(n_data, n_sp, True), rank,
+                                  world)
+            worlds[name] = groups if rank < n else None
+        cases = [(case, kind, kw, name, 1, torch.float32, "none")
+                 for name in TMESH_LAYOUTS for case, kind, kw in TMESH_CASES]
+        cases.append(("sac", "sac", {}, "2x2", TMESH_BF16_STEPS,
+                      torch.bfloat16, "block"))
+        for case, kind, kw, name, n_steps, dtype, remat in cases:
+            groups = worlds[name]
+            if groups is None:
+                continue
+            f32 = dtype == torch.float32
+            key = "%s_%s_%s" % (case, name, "f32" if f32 else "bf16_block")
+            state = flagship_state(device, group=groups.world, dtype=dtype,
+                                   remat=remat, **kw)
+            step = tmesh_step(kind, device, groups, f32)
+            batch = tuple(a[groups.d * (a.shape[0] // groups.n_data):
+                            (groups.d + 1) * (a.shape[0] // groups.n_data)]
+                          for a in (tmesh_batch(kind, device) if f32
+                                    else sac_batch(device)))
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            rows = []
+            for i in range(n_steps):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                dist.barrier(device, groups.world)
+                calls0, paths0 = dict(dist.CALLS), _path_counts(ce)
+                t0 = time.perf_counter()
+                m = step(state, batch, gen)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                rows.append(dict(
+                    step_ms=ms, peak_gb=torch.cuda.max_memory_allocated()
+                    / 1e9, collectives=_step_calls(calls0),
+                    ce_launches_by_path=_paths_since(ce, paths0),
+                    metrics={k: float(v) for k, v in m.items()
+                             if v.dim() == 0}))
+                for k, v in rows[-1]["metrics"].items():
+                    need(math.isfinite(v), "%s step %d: %s = %r"
+                         % (key, i, k, v))
+            if kind == "sac":
+                need(rows[-1]["metrics"]["pseudo_cover"] > 0,
+                     "%s: no pseudo-labels" % key)
+            equal = dist.assert_replicas_equal(
+                dist.state_tensors(state, device, group=groups.world),
+                device, groups.world)
+            if rank == 0 and f32:
+                torch.save(dict(
+                    metrics={k: v.detach().cpu() for k, v in m.items()},
+                    state={k: v.cpu() for k, v in
+                           state_snapshot(state).items()}),
+                    os.path.join(TMESH_BASE, "%s_rank0.pt" % key))
+            out["cases"][key] = dict(
+                coords=[groups.d, groups.s], steps=rows,
+                replica_tensors_equal=equal)
+            del state, step, batch, m
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy()
+    log("train_mesh_rank: %s" % json.dumps(out))
+    with open(os.path.join(TMESH_BASE, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+
+
+def run_train_mesh_gloo(device, card):
+    """(b) ``TMESH_RANKS`` spawned gloo ranks on the card (``tmesh_rank``),
+    then in this process the unsharded one-process global step of each f32
+    case from the same state, batch and generator: rank 0's losses,
+    parameters, BN buffers, teacher and running_conf within
+    ``TMESH_TOL``; the full-depth ABN step its source loss (the forward),
+    the rest printed.  Returns each rank's measurements."""
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.utils.sys_tools import find_free_port
+
+    shutil.rmtree(TMESH_BASE, ignore_errors=True)
+    os.makedirs(TMESH_BASE)
+    torch.cuda.empty_cache()
+    addr = "127.0.0.1:%d" % find_free_port()
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False   # as the ranks run
+    try:
+        t0 = time.time()
+        torch.multiprocessing.spawn(
+            tmesh_rank, args=(addr, card, t0, str(device)),
+            nprocs=TMESH_RANKS, join=True)
+        spawn_s = time.time() - t0
+        ranks = []
+        for r in range(TMESH_RANKS):
+            with open(os.path.join(TMESH_BASE, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        out = dict(phase="train_mesh_gloo", card=card, ranks=TMESH_RANKS,
+                   backend="gloo", spawn_and_steps_s=spawn_s, cases={})
+        for case, kind, kw in TMESH_CASES:
+            state = flagship_state(device, dtype=torch.float32, **kw)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            m = tmesh_step(kind, device)(state, tmesh_batch(kind, device),
+                                         gen)
+            torch.cuda.synchronize()
+            ref = dict(metrics={k: v.detach() for k, v in m.items()},
+                       state=state_snapshot(state))
+            ref_ms = (time.perf_counter() - t1) * 1e3
+            ref_gb = torch.cuda.max_memory_allocated() / 1e9
+            del state, m
+            layouts = []
+            for name in TMESH_LAYOUTS:
+                key = "%s_%s_f32" % (case, name)
+                got = torch.load(os.path.join(TMESH_BASE,
+                                              "%s_rank0.pt" % key),
+                                 weights_only=True)
+                bad = []
+                for what in ("metrics", "state"):
+                    for k, v in ref[what].items():
+                        g = got[what][k].to(device)
+                        if not torch.allclose(g.double(), v.double(),
+                                              **TMESH_TOL):
+                            bad.append((what + "." + k, float(
+                                (g.double() - v.double()).abs().max())))
+                err = max(float((got["state"][k].to(device).double()
+                                 - v.double()).abs().max())
+                          for k, v in ref["state"].items()
+                          if v.is_floating_point())
+                o = out["cases"][key] = dict(
+                    outside_tolerance=bad[:8], state_max_abs_diff=err,
+                    unsharded_step_ms=ref_ms, unsharded_peak_gb=ref_gb,
+                    losses={k: float(v) for k, v in got["metrics"].items()
+                            if v.dim() == 0},
+                    losses_unsharded={k: float(v) for k, v in
+                                      ref["metrics"].items()
+                                      if v.dim() == 0})
+                log("train_mesh_gloo %s: %s" % (key, json.dumps(o)))
+                if case == "abn":
+                    bad = [b for b in bad if b[0] == "metrics.src_loss_ce"]
+                need(not bad, "%s: rank 0 and the unsharded global step "
+                     "differ beyond rtol %g / atol %g: %s" % (
+                         key, TMESH_TOL["rtol"], TMESH_TOL["atol"], bad[:5]))
+                layouts.append(got["state"])
+            # two layouts against each other: as far apart as each is from
+            # the unsharded step when the step is chaotic, not closer
+            out["cases"]["%s_layouts_state_max_abs_diff" % case] = \
+                _max_abs_diff(*layouts)
+            del ref, layouts
+            torch.cuda.empty_cache()
+        log("train_mesh_gloo: %s" % json.dumps(out))
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        shutil.rmtree(TMESH_BASE, ignore_errors=True)
+    return ranks
+
+
+def run_train_mesh(ce, ce_triton, device, card):
+    """Phase 21: (a) the NCCL world of one (``run_train_mesh_one_rank``);
+    (b) ``TMESH_RANKS`` gloo ranks on the card (``run_train_mesh_gloo``).
+    Returns the CE launches: (a)'s by step, (b)'s by rank and case, each
+    by path (strips may leave the bulk path)."""
+    one = run_train_mesh_one_rank(ce, ce_triton, device, card)
+    ranks = run_train_mesh_gloo(device, card)
+    summary = {}
+    for r in ranks:
+        for key, case in r["cases"].items():
+            step = case["steps"][-1]
+            summary["rank%d_%s" % (r["rank"], key)] = dict(
+                step_ms=step["step_ms"], peak_gb=step["peak_gb"],
+                **step["collectives"])
+    log("train_mesh per rank and step: %s" % json.dumps(dict(
+        summary, card=card)))
+    # a case's last step, by kernel and by path
+    by_path = {"rank%d" % r["rank"]: {
+        key: c["steps"][-1]["ce_launches_by_path"]
+        for key, c in r["cases"].items()} for r in ranks}
+    gloo = {rank: {key: {k: sum(v.values()) for k, v in paths.items()}
+                   for key, paths in cases.items()}
+            for rank, cases in by_path.items()}
+    for rank, cases in gloo.items():
+        for key, got in cases.items():
+            need(all(got.values()), "train_mesh %s %s: a CE kernel did not "
+                 "launch: %s" % (rank, key, got))
+    return dict(nccl_one=one, gloo_ranks=gloo, gloo_by_path=by_path)
+
+
 def main(argv=()):
     import argparse
 
@@ -3780,6 +4327,10 @@ def main(argv=()):
         "--infer-mesh-only", action="store_true",
         help="instead of the phases, run phase 18 (inference over a world "
              "of ranks) alone")
+    parser.add_argument(
+        "--train-mesh-only", action="store_true",
+        help="instead of the phases, build the CE kernels and run phase 21 "
+             "(height-sharded training) alone")
     parser.add_argument(
         "--remat-only", action="store_true",
         help="instead of the phases, build the CE kernels and run phase 19 "
@@ -3816,10 +4367,11 @@ def main(argv=()):
         run_infer_mesh(ce, ce_triton, device, card)
         log("infer_mesh: %.1f s" % (time.perf_counter() - t_start))
         return 0
-    if args.remat_only or args.step_tools_only:
+    if args.remat_only or args.step_tools_only or args.train_mesh_only:
         build_cuda(ce)
         for flag, phase in ((args.remat_only, run_remat_opt),
-                            (args.step_tools_only, run_step_tools)):
+                            (args.step_tools_only, run_step_tools),
+                            (args.train_mesh_only, run_train_mesh)):
             if flag:
                 t0 = time.perf_counter()
                 log("%s launches: %s" % (phase.__name__, json.dumps(
@@ -3893,6 +4445,8 @@ def main(argv=()):
     lap("remat_opt")
     tools_launches = run_step_tools(ce, ce_triton, device, card)
     lap("step_tools")
+    tmesh_launches = run_train_mesh(ce, ce_triton, device, card)
+    lap("train_mesh")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -3955,6 +4509,20 @@ def main(argv=()):
                                  ("launches_step_tools", tools_launches)):
                 row[key] = {part: (got[k] if route == "cuda" else 0)
                             for part, got in by_part.items()}
+            # height-sharded training (phase 21): the NCCL world of one
+            # by step, each gloo rank's last step of each case by path
+            cuda = route == "cuda"
+            row["launches_train_mesh"] = dict(
+                nccl_one={kind: (got[k] if cuda else 0) for kind, got in
+                          tmesh_launches["nccl_one"].items()},
+                gloo_ranks={rank: {key: (got[k] if cuda else 0)
+                                   for key, got in cases.items()}
+                            for rank, cases in
+                            tmesh_launches["gloo_ranks"].items()},
+                gloo_by_path={rank: {key: (paths[k] if cuda else None)
+                                     for key, paths in cases.items()}
+                              for rank, cases in
+                              tmesh_launches["gloo_by_path"].items()})
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

@@ -10,7 +10,9 @@ ONE bilinear warp of the base image (labels: nearest).
 
 Each pipeline is split into ``sample_*_draws(generator, ...)`` (every
 random number it uses, in the order and ranges of the JAX version) and a
-deterministic ``apply_*(draws, ...)``.
+deterministic ``apply_*(draws, ...)``.  ``part=(n, d)``: the images are
+slice ``d`` of ``n`` equal slices of the global batch, whose draws are
+made and slice ``d`` of them applied (the gspmd steps).
 """
 
 from typing import NamedTuple
@@ -60,6 +62,12 @@ def _warp_views(images, labels, theta, out_hw):
     valid = valid_mask_affine(theta, out_hw, labels.shape[1:3])
     labels = torch.where(valid, lbl_w.to(torch.int32), IGNORE).to(torch.int32)
     return imgs, labels, valid
+
+
+def take(draws, lo, hi):
+    """Items ``lo:hi`` of every draw (each has the batch leading)."""
+    return {k: take(v, lo, hi) if isinstance(v, dict) else v[lo:hi]
+            for k, v in draws.items()}
 
 
 def _flip_sign(enabled, u):
@@ -174,12 +182,18 @@ def augment_target_groups(generator, images, labels, *, group_size,
                           group_hflip=True, guided_hflip=True,
                           blur=True, jitter=0.4, greyscale=0.2,
                           mean=(0.485, 0.456, 0.406),
-                          std=(0.229, 0.224, 0.225)):
+                          std=(0.229, 0.224, 0.225), part=None):
     """Draw from ``generator``, then :func:`apply_target_groups`."""
+    g, t = images.shape[0], group_size
+    n, d = part or (1, 0)
     draws = sample_target_draws(
-        generator, images.shape[0], group_size, target_scale=target_scale,
+        generator, g * n, t, target_scale=target_scale,
         zoom=zoom, blur=blur, jitter=jitter, greyscale=greyscale,
         device=images.device)
+    if n > 1:   # per group, then per view (the photometric draws)
+        draws = {k: (take(v, d * g * t, (d + 1) * g * t)
+                     if isinstance(v, dict) else v[d * g:(d + 1) * g])
+                 for k, v in draws.items()}
     return apply_target_groups(
         draws, images, labels, group_size=group_size,
         group_hflip=group_hflip, guided_hflip=guided_hflip, blur=blur,
@@ -268,11 +282,15 @@ def augment_source_batch(generator, images, labels, *, crop_hw,
                          scale_range=(0.5, 1.5), hflip=True,
                          jitter=0.0, blur=False,
                          mean=(0.485, 0.456, 0.406),
-                         std=(0.229, 0.224, 0.225)):
+                         std=(0.229, 0.224, 0.225), part=None):
     """Draw from ``generator``, then :func:`apply_source_batch`."""
-    draws = sample_source_draws(generator, images.shape[0],
+    b = images.shape[0]
+    n, d = part or (1, 0)
+    draws = sample_source_draws(generator, b * n,
                                 scale_range=scale_range, jitter=jitter,
                                 blur=blur, device=images.device)
+    if n > 1:
+        draws = take(draws, d * b, (d + 1) * b)
     return apply_source_batch(draws, images, labels, crop_hw=crop_hw,
                               hflip=hflip, jitter=jitter, blur=blur,
                               mean=mean, std=std)

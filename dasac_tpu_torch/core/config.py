@@ -11,12 +11,14 @@ The ``TPU`` section is kept whole so every config loads, but:
   * ``TPU.COMPILE_CACHE`` (XLA's persistent compile cache),
     ``TPU.RESIZE_METHOD`` (XLA's resize formulation) and ``TPU.CKPT_LOSS``
     (XLA loss rematerialization) are accepted and not read;
-  * ``TPU.MESH_DEVICES`` is the number of data-parallel processes, one per
-    device, that the train CLI spawns (0 = as many visible GPUs as divide
-    both batch dimensions); ``TPU.PARTITION`` "gspmd" and ``TPU.MESH_SP``
-    > 1 make the trainer raise ``NotImplementedError`` (height-sharded
-    training is still to be ported); ``TPU.REMAT`` (none / block / convs)
-    checkpoints the model as in ``dasac_tpu``;
+  * ``TPU.MESH_DEVICES`` is the number of processes, one per device, that
+    the train CLI spawns (0 = as many visible GPUs as divide both batch
+    dimensions, times ``MESH_SP`` under gspmd); ``TPU.PARTITION`` "gspmd"
+    runs the global-batch step over a ``(data, sp)`` world of processes,
+    each frame's height over ``TPU.MESH_SP`` of them (``core/mesh.py``,
+    ``train/steps.py``), where ``dasac_tpu`` jits it over a device mesh in
+    one process; ``TPU.REMAT`` (none / block / convs) checkpoints the
+    model as in ``dasac_tpu``;
   * ``TPU.CE_IMPL`` "pallas" selects the CUDA CE kernels, "xla" the plain
     log-softmax; ``TPU.COMPUTE_DTYPE``, ``REFINE_DTYPE``, ``REFINE_RES``,
     ``LOSS_DTYPE``, ``LOADER_THREADS``, ``PREFETCH``, ``PACKED_DIR`` and

@@ -19,7 +19,9 @@ per-step figures, and the row-slab exchanges of height-sharded inference
 (:func:`exchange_rows`): ``exchange`` rounds this rank took part in and
 ``exchange_bytes`` it sent, in all and by layer kind
 (``exchange_<kind>``, ``exchange_bytes_<kind>``, kinds
-``EXCHANGE_KINDS``).
+``EXCHANGE_KINDS``), and the same of their backward rounds
+(:class:`ExchangeRows`, which sends each halo row's gradient back to its
+owner) under ``exchange_bwd``/``exchange_bwd_bytes``.
 """
 
 import datetime
@@ -36,9 +38,10 @@ TIMEOUT = datetime.timedelta(minutes=30)
 
 EXCHANGE_KINDS = ("conv", "pool", "resize", "gather")
 CALLS = {"bn": 0, "bn_grad": 0, "mean": 0, "sum": 0, "broadcast": 0,
-         "exchange": 0, "exchange_bytes": 0,
-         **{"exchange_%s" % k: 0 for k in EXCHANGE_KINDS},
-         **{"exchange_bytes_%s" % k: 0 for k in EXCHANGE_KINDS}}
+         **{"%s%s" % (key, kind): 0
+            for key in ("exchange", "exchange_bytes", "exchange_bwd",
+                        "exchange_bwd_bytes")
+            for kind in ("",) + tuple("_" + k for k in EXCHANGE_KINDS)}}
 
 
 class Launch(NamedTuple):
@@ -163,11 +166,15 @@ class AllReduceSum(torch.autograd.Function):
     gradients over the ranks as well.  Divided by the world size, this is
     the cotangent JAX gives ``pmean`` inside ``shard_map(check_vma=False)``:
     each rank's input gradient is the SUM over ranks of the gradient
-    reaching the mean, over the world size."""
+    reaching the mean, over the world size.  ``known``: the sum, already
+    reduced (a remat replay recomputing what its forward reduced): no
+    collective in the forward, the same backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, known=None):
         ctx.group = group
+        if known is not None:
+            return known.clone()
         CALLS["bn"] += 1
         y = x.clone()
         tdist.all_reduce(y, group=group)
@@ -178,7 +185,7 @@ class AllReduceSum(torch.autograd.Function):
         CALLS["bn_grad"] += 1
         g = grad.contiguous().clone()
         tdist.all_reduce(g, group=ctx.group)
-        return g, None
+        return g, None, None
 
 
 def broadcast_(tensors, src=0, group=None):
@@ -304,6 +311,17 @@ def transport(group):
     return "direct" if tdist.get_backend(group) == "nccl" else "host"
 
 
+def _count(prefix, kind, sent):
+    for key, v in ((prefix, 1), (prefix + "_bytes", sent)):
+        CALLS[key] += v
+        CALLS["%s_%s" % (key, kind)] += v
+
+
+def _p2p(ops):
+    for work in tdist.batch_isend_irecv(ops):
+        work.wait()
+
+
 def exchange_rows(x, dim, have, need, group, kind):
     """The row-slab exchange of height-sharded inference.
 
@@ -344,11 +362,8 @@ def exchange_rows(x, dim, have, need, group, kind):
             ops.append(tdist.P2POp(tdist.isend, buf, peer, group))
             sent += buf.numel() * buf.element_size()
     if ops:
-        for work in tdist.batch_isend_irecv(ops):
-            work.wait()
-        for key, v in (("exchange", 1), ("exchange_bytes", sent)):
-            CALLS[key] += v
-            CALLS["%s_%s" % (key, kind)] += v
+        _p2p(ops)
+        _count("exchange", kind, sent)
     if not pieces:
         return x.narrow(dim, 0, 0)
     if len(pieces) == 1 and not ops:
@@ -358,3 +373,84 @@ def exchange_rows(x, dim, have, need, group, kind):
             and x.is_contiguous(memory_format=torch.channels_last)):
         out = out.contiguous(memory_format=torch.channels_last)
     return out
+
+
+def exchange_rows_back(grad, dim, have, need, group, kind):
+    """The reverse of :func:`exchange_rows` with the same plan: ``grad``
+    holds the gradient of this rank's ``need`` rows; each row's gradient
+    goes back to the rank that owns it and is added there.  Returns the
+    gradient of this rank's ``have`` rows (zero where no rank read a
+    row)."""
+    me, n = group.rank(), group.size()
+    staged = grad.device.type != "cpu" and transport(group) == "host"
+    wire = torch.device("cpu") if staged else grad.device
+    lo, hi = have[me]
+    shape = list(grad.shape)
+    shape[dim] = hi - lo
+    out = grad.new_zeros(shape)
+    base = need[me][0]
+    adds, ops, sent = [], [], 0
+    for t in range(n):
+        if t == me:
+            mine = _overlap(have[me], need[me])
+            if mine:
+                out.narrow(dim, mine[0] - lo, mine[1] - mine[0]).add_(
+                    grad.narrow(dim, mine[0] - base, mine[1] - mine[0]))
+            continue
+        peer = tdist.get_global_rank(group, t)
+        back = _overlap(have[t], need[me])
+        if back:
+            buf = grad.narrow(dim, back[0] - base,
+                              back[1] - back[0]).contiguous().to(wire)
+            ops.append(tdist.P2POp(tdist.isend, buf, peer, group))
+            sent += buf.numel() * buf.element_size()
+        give = _overlap(have[me], need[t])
+        if give:
+            rshape = list(grad.shape)
+            rshape[dim] = give[1] - give[0]
+            buf = torch.empty(rshape, dtype=grad.dtype, device=wire)
+            ops.append(tdist.P2POp(tdist.irecv, buf, peer, group))
+            adds.append((give, buf))
+    if ops:
+        _p2p(ops)
+        _count("exchange_bwd", kind, sent)
+    for (a, b), buf in adds:
+        out.narrow(dim, a - lo, b - a).add_(buf.to(out.device))
+    return out
+
+
+class ExchangeRows(torch.autograd.Function):
+    """:func:`exchange_rows` with a backward: the plan (``group``,
+    ``have``, ``need``) travels in ``ctx``, and the backward runs
+    :func:`exchange_rows_back` on it, on whatever thread autograd runs it.
+    Every rank of the group must reach the backward of the same exchanges
+    in the same order, as every rank runs the same layers."""
+
+    @staticmethod
+    def forward(ctx, x, dim, have, need, group, kind):
+        ctx.plan = (dim, have, need, group, kind)
+        y = exchange_rows(x, dim, have, need, group, kind)
+        return y.clone() if y._is_view() else y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (exchange_rows_back(grad, *ctx.plan),
+                None, None, None, None, None)
+
+
+def all_reduce_sum_grads_(params, group):
+    """Sum the ``.grad`` of ``params`` over ``group`` in place, in one
+    flat all-reduce (``dasac_tpu``'s gspmd step: the gradient of the
+    global loss, whose shares the ranks computed).  A parameter no rank
+    has a gradient for keeps ``None``; one that only some ranks have a
+    gradient for counts zeros on the others."""
+    if group is None:
+        return
+    params = [p for p in params if p.requires_grad]
+    flag = torch.tensor([p.grad is not None for p in params],
+                        dtype=torch.float32, device=params[0].device)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    all_reduce_sum_(grads + [flag], group)
+    for p, g, f in zip(params, grads, flag.tolist()):
+        p.grad = g if f else None

@@ -10,9 +10,11 @@
     of ``jax.image.resize(..., "linear")``).
 
 Under a height-sharded frame (``nn/spatial.py``) the resize and the pools
-compute this rank's output rows from the rows they fetch; the half-pixel
-resize runs on whole frames only (the inference program applies it before
-the frame is sharded).
+compute this rank's output rows from the rows they fetch, and their
+backward sends each fetched row's gradient back to its owner (rows outside
+the frame get none); the half-pixel resize runs on whole frames only (the
+inference program and the gspmd steps apply it before the frame is
+sharded).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from dasac_tpu_torch.nn import spatial
+from dasac_tpu_torch.nn.layers import empty_rows
 
 
 def _linear_indices_weights(in_size, out_size):
@@ -131,8 +134,8 @@ def _pool_strip(ctx, x, window, stride, oh):
     """Max pool of this rank's input rows ``x`` (already padded) into its
     share of ``oh`` output rows."""
     if x.shape[2] == 0:   # this rank owns no output row
-        y = x.new_empty((*x.shape[:2], 0,
-                         (x.shape[3] - window) // stride + 1))
+        y = empty_rows(x, (*x.shape[:2], 0,
+                           (x.shape[3] - window) // stride + 1), x.dtype)
     else:
         y = F.max_pool2d(x, window, stride)
     return ctx.record(y, 2, oh)

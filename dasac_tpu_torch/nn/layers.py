@@ -18,9 +18,10 @@ BN modes:
 Remat (:func:`checkpointed`, ``TPU.REMAT``): a model runs a block or a
 chunk of layers under ``torch.utils.checkpoint``, which replays its forward
 in the backward.  The replay recomputes batch statistics (and, with a
-group, their all-reduce) but leaves the running ones alone, so a live BN
-updates its buffers once a forward, as flax's ``nn.remat`` applies the
-``batch_stats`` mutation once.
+group, their all-reduce; under a height-sharded frame it takes the
+forward's reduced sums instead) but leaves the running ones alone, so a
+live BN updates its buffers once a forward, as flax's ``nn.remat`` applies
+the ``batch_stats`` mutation once.
 """
 
 import contextlib
@@ -105,8 +106,8 @@ class Conv2d(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dtype)
         if x.shape[2] == 0:   # this rank owns no output row
             w_out = (w_in + left + right - span) // self.stride + 1
-            y = x.new_empty((x.shape[0], w.shape[0], 0, w_out),
-                            dtype=self.dtype)
+            y = empty_rows(x, (x.shape[0], w.shape[0], 0, w_out),
+                           self.dtype)
         elif left == right:
             y = F.conv2d(x.to(self.dtype), w, b, self.stride, (0, left),
                          self.dilation)
@@ -114,6 +115,13 @@ class Conv2d(nn.Module):
             y = F.conv2d(F.pad(x.to(self.dtype), (left, right)), w, b,
                          self.stride, 0, self.dilation)
         return ctx.record(y, 2, h_out)
+
+
+def empty_rows(x, shape, dtype):
+    """An empty output of ``shape`` that depends on ``x`` (a rank that
+    owns no output row still takes part in its input's backward
+    exchange)."""
+    return (x.sum() * 0).to(dtype).expand(shape)
 
 
 class SyncBatchNorm(nn.Module):
@@ -128,8 +136,12 @@ class SyncBatchNorm(nn.Module):
     With a process ``group`` the live statistics are averaged over its
     ranks as ``dasac_tpu``'s ``lax.pmean`` over the mesh axis does: one
     all-reduce of ``[mean, mean_sq]`` (2C floats), and the pixel count of
-    the unbiased variance times the world size.  Frozen BN never
-    communicates.
+    the unbiased variance times the world size.  Under a height-sharded
+    frame (``nn/spatial.py``; ``group`` then spans every rank of the
+    world, whose strips may differ by a row) they are sums and a count
+    over the group, ``[sum, sum_sq, count]`` in one all-reduce, which a
+    remat replay takes from its forward instead of reducing again.
+    Frozen BN never communicates.
     """
 
     def __init__(self, features, momentum=0.1, eps=1e-5,
@@ -146,7 +158,10 @@ class SyncBatchNorm(nn.Module):
 
     @torch.no_grad()
     def _update_running(self, mean, var, count):
-        unbiased = var * (count / max(count - 1.0, 1.0))
+        if torch.is_tensor(count):
+            unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
+        else:
+            unbiased = var * (count / max(count - 1.0, 1.0))
         self.running_mean.mul_(1.0 - self.momentum).add_(
             mean, alpha=self.momentum)
         self.running_var.mul_(1.0 - self.momentum).add_(
@@ -154,12 +169,26 @@ class SyncBatchNorm(nn.Module):
         self.num_batches_tracked.add_(1)
 
     def forward(self, x, use_running_average):
+        frame = spatial.current()
         if use_running_average:
             mean, var = self.running_mean, self.running_var
-        elif spatial.current() is not None:
-            raise NotImplementedError(
-                "batch statistics over a height-sharded frame need a "
-                "reduction over its ranks, which is not ported")
+        elif frame is not None:
+            if self.group is None:
+                raise RuntimeError(
+                    "batch statistics over a height-sharded frame need the "
+                    "BN layers built with the world's group")
+            xf = x.float()
+            c = x.shape[1]
+            local = torch.cat([xf.sum(dim=(0, 2, 3)),
+                               (xf * xf).sum(dim=(0, 2, 3)),
+                               xf.new_full((1,), x.numel() // c)])
+            stats = frame.reduced(self, lambda known: dist.AllReduceSum.apply(
+                local, self.group, known))
+            count = stats[-1:]   # a tensor: no wait for the device
+            mean, mean_sq = (stats[:-1] / count).split(c)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
+            if not _RECOMPUTING.get():
+                self._update_running(mean, var, count)
         else:
             xf = x.float()
             dims = (0, 2, 3)
@@ -185,13 +214,38 @@ class SyncBatchNorm(nn.Module):
                 + shift.to(self.dtype)[:, None, None])
 
 
+# (n, d): a forward sees slice d of n equal slices of its global batch
+# (the gspmd steps), so a draw per sample covers the global batch
+_BATCH_SLICE = contextvars.ContextVar("dasac_tpu_torch_batch_slice",
+                                      default=None)
+
+
+@contextlib.contextmanager
+def batch_slice(n, d):
+    """Forwards inside see slice ``d`` of ``n`` of the global batch: the
+    dropout masks are drawn for the global batch, and slice ``d`` taken
+    (the draws of the one-process global step)."""
+    token = _BATCH_SLICE.set((n, d))
+    try:
+        yield
+    finally:
+        _BATCH_SLICE.reset(token)
+
+
 def sample_channel_dropout_draws(generator, x, rate):
     """The keep mask of channel dropout for the NCHW-shaped ``x``: one
     bool per (sample, channel), kept with probability ``1 - rate``, drawn
     from ``generator`` (on ``x``'s device; ``None`` draws from torch's
-    default generator)."""
-    return torch.rand(x.shape[:2], generator=generator,
-                      device=x.device) >= rate
+    default generator); under :func:`batch_slice`, the global batch's
+    rows of this slice."""
+    part = _BATCH_SLICE.get()
+    b = x.shape[0]
+    if part is None:
+        return torch.rand(x.shape[:2], generator=generator,
+                          device=x.device) >= rate
+    n, d = part
+    u = torch.rand((b * n, x.shape[1]), generator=generator, device=x.device)
+    return u[d * b:(d + 1) * b] >= rate
 
 
 def apply_channel_dropout(x, keep, rate):
@@ -241,9 +295,22 @@ def checkpointed(fn, mode, *args):
     directly for "none", and when no gradient is recorded (a no-grad
     forward has nothing to replay).  Nothing inside ``fn`` may draw random
     numbers: the replay does not restore a ``torch.Generator``, so the RNG
-    state is not saved at all."""
+    state is not saved at all.  Under a height-sharded frame the replay
+    re-enters it (``nn.spatial.Frame.replay``): the same record of
+    heights, its halo exchanges again, its live BN statistics from the
+    forward."""
     if mode == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    frame = spatial.current()
+    if frame is not None:
+        fn = functools.partial(_in_frame, frame, frame.mark(), fn)
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False,
                       context_fn=functools.partial(_contexts, mode))
+
+
+def _in_frame(frame, mark, fn, *args):
+    if not _RECOMPUTING.get():
+        return fn(*args)
+    with frame.replay(mark):
+        return fn(*args)

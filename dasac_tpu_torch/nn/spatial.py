@@ -24,6 +24,17 @@ for one frame call (:meth:`Sharded.frame`): each op records its output's
 same way; a model reads a strip's frame size with :func:`frame_hw`.  Two
 tensors of one call with the same local rows and width but different
 global heights would make the record ambiguous: that raises.
+
+Training: the exchanges are differentiable (``core.dist.ExchangeRows``:
+the backward sends each halo row's gradient back to its owner, the plan
+carried by autograd, not by :func:`current`), so a row read outside the
+frame gets no gradient and an owned row gets every reader's.  A remat
+replay runs in the backward, where :func:`current` is unset (autograd's
+thread): ``nn.layers.checkpointed`` re-enters the frame with
+:meth:`Frame.replay`, which keeps the record of heights and hands each
+live BN the statistics its forward reduced (:meth:`Frame.reduced`), so
+the replay reduces nothing again.  :meth:`Frame.all_gather` gives every
+rank the whole frame.
 """
 
 import contextlib
@@ -65,25 +76,77 @@ def _fill_rows(like, dim, n, fill):
 
 
 class Sharded:
-    """One frame's height over ``group``: this rank's place in it, and the
-    record of the global heights of the strips of one frame call."""
+    """One frame's height over ``group``: this rank's place in it.  Its
+    other methods are :class:`Frame`'s, on the frame call under way
+    (:meth:`frame`)."""
 
     def __init__(self, group):
         self.group = group
         self.n, self.s = group.size(), group.rank()
-        self._rows = None
+        self._frame = None
 
     @contextlib.contextmanager
     def frame(self):
-        """Make this the active context for one frame call, with a fresh
-        record of heights."""
-        self._rows = {}
-        token = _ACTIVE.set(self)
+        """Make a fresh :class:`Frame` (a new record of heights) the
+        active context for one frame call; yields it."""
+        f = Frame(self.group)
+        self._frame = f
+        token = _ACTIVE.set(f)
         try:
-            yield self
+            yield f
         finally:
             _ACTIVE.reset(token)
-            self._rows = None
+            self._frame = None
+
+    def __getattr__(self, name):
+        # own/record/rows/shard/window/fetch: the frame call's; own,
+        # gather and all_gather need none
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return getattr(self._frame or Frame(self.group), name)
+
+
+class Frame:
+    """One frame call over ``group``: the record of the global heights of
+    its strips, and the live BN statistics it reduced (for a replay)."""
+
+    def __init__(self, group, rows=None, stats=None, calls=None,
+                 replaying=False):
+        self.group = group
+        self.n, self.s = group.size(), group.rank()
+        self._rows = {} if rows is None else rows
+        self._stats = {} if stats is None else stats
+        self._calls = {} if calls is None else calls
+        self.replaying = replaying
+
+    def mark(self):
+        """Where the frame's live BN calls stand (for :meth:`replay`)."""
+        return dict(self._calls)
+
+    @contextlib.contextmanager
+    def replay(self, mark):
+        """Re-enter this frame for a remat replay of what ran after
+        ``mark``: the same record of heights, and each live BN gets the
+        statistics its forward call reduced."""
+        f = Frame(self.group, self._rows, self._stats, dict(mark), True)
+        token = _ACTIVE.set(f)
+        try:
+            yield f
+        finally:
+            _ACTIVE.reset(token)
+
+    def reduced(self, module, reduce):
+        """``reduce()`` for ``module``'s next call in this frame, kept;
+        in a replay, what the forward's same call kept is passed to
+        ``reduce(known)`` instead."""
+        i = self._calls.get(id(module), 0)
+        self._calls[id(module)] = i + 1
+        key = (id(module), i)
+        if self.replaying:
+            return reduce(self._stats[key])
+        y = reduce(None)
+        self._stats[key] = y.detach()
+        return y
 
     def own(self, size):
         """This rank's rows ``[lo, hi)`` of ``size``."""
@@ -136,10 +199,17 @@ class Sharded:
         """Rows ``need[s]`` (global, may reach outside ``[0, size_in)``,
         where they are ``fill``) of the ``size_in``-row tensor whose strip
         ``x`` is, for each rank ``s``; every rank of the group calls it
-        with the same ``need``.  Returns this rank's."""
+        with the same ``need``.  Returns this rank's.  Differentiable in
+        ``x`` when autograd records."""
         have = [split(size_in, self.n, t) for t in range(self.n)]
+        if [tuple(r) for r in need] == have:   # each rank reads its own rows
+            return x
         inside = [(max(lo, 0), min(hi, size_in)) for lo, hi in need]
-        core = dist.exchange_rows(x, dim, have, inside, self.group, kind)
+        if torch.is_grad_enabled() and x.requires_grad:
+            core = dist.ExchangeRows.apply(x, dim, have, inside, self.group,
+                                           kind)
+        else:
+            core = dist.exchange_rows(x, dim, have, inside, self.group, kind)
         lo, hi = need[self.s]
         if lo >= hi:
             return core
@@ -158,3 +228,8 @@ class Sharded:
         need = [(0, size) if t == root else (0, 0) for t in range(self.n)]
         out = self.fetch(x, dim, size, need, 0, "gather")
         return out if self.s == root else None
+
+    def all_gather(self, x, dim, size):
+        """The whole ``size``-row tensor on every rank of the group from
+        every rank's strip ``x``."""
+        return self.fetch(x, dim, size, [(0, size)] * self.n, 0, "gather")

@@ -5,7 +5,15 @@ Layout: probabilities/logits are channels-last ``[..., H, W, C]``; label
 maps are ``[..., H, W]`` int32 with 255 = ignore.  The teacher lazy-init /
 EMA branch is decided on the host from the step counter and ``slow_init``,
 which the train state keeps as Python values (no device sync per step).
+
+Global batches (``share``, a :class:`Share`): under ``TPU.PARTITION``
+gspmd each rank holds a slice of the global batch (and of each frame's
+rows) and computes its share of the global-batch value: the mean over its own
+pixels times its share of the pixels, which add up over the ranks to the
+one-process mean.  Without a share nothing changes.
 """
+
+from typing import NamedTuple
 
 import torch
 
@@ -15,22 +23,42 @@ from dasac_tpu_torch.ops.ce import nll_fused
 IGNORE = 255
 
 
+class Share(NamedTuple):
+    """This rank's part of a global batch: ``group`` spans every rank of
+    the world; ``frac`` is this rank's share of the batch's pixels and
+    ``views`` its share of the batch's views; ``data`` groups the ranks
+    that hold the same rows of the other batch slices (``None``: one
+    slice).  A local mean times ``frac`` is this rank's share of the
+    global mean (exactly the mean in a world of one)."""
+
+    group: object
+    frac: float
+    views: float
+    data: object = None
+
+
 # ---------------------------------------------------------------------------
 # running class prior (reference models/sac.py:104-117)
 # ---------------------------------------------------------------------------
 
 def update_running_conf(running_conf, probs, stat_momentum, threshold_beta,
-                        tolerance=1e-8, group=None):
+                        tolerance=1e-8, group=None, share=None):
     """EMA of the mean class probability.
 
     Classes still at their init value (``threshold_beta``) adopt the batch
     average directly; others get ``m*old + (1-m)*avg``.  With a process
     ``group`` the batch average is averaged over its ranks first, so every
-    replica tracks the global prior.
+    replica tracks the global prior.  With a ``share``, ``probs`` are this
+    rank's pixels of the global batch, whose average is their sum over the
+    ranks of their shares.
     """
     c = probs.shape[-1]
-    probs_avg = probs.reshape(-1, c).float().mean(dim=0)
-    dist.all_reduce_mean_([probs_avg], group)
+    if share is None:
+        probs_avg = probs.reshape(-1, c).float().mean(dim=0)
+        dist.all_reduce_mean_([probs_avg], group)
+    else:
+        probs_avg = probs.reshape(-1, c).float().mean(dim=0) * share.frac
+        dist.all_reduce_sum_([probs_avg], share.group)
     is_new = (probs_avg > tolerance) & (running_conf == threshold_beta)
     ema = stat_momentum * running_conf + (1.0 - stat_momentum) * probs_avg
     return torch.where(is_new, probs_avg, ema)
@@ -118,28 +146,46 @@ def _nll(logits, labels, compute_dtype=torch.float32, impl="kernel"):
 
 
 def cross_entropy_mean(logits, labels, compute_dtype=torch.float32,
-                       impl="kernel"):
+                       impl="kernel", share=None):
     """Reference source loss: sum of valid per-pixel CE divided by the TOTAL
-    pixel count (torch ignore_index zeros + .mean())."""
+    pixel count (torch ignore_index zeros + .mean()); with a ``share``,
+    this rank's share of the global batch's."""
     nll, _, _ = _nll(logits, labels, compute_dtype, impl=impl)
+    if share is not None:
+        return nll.mean() * share.frac
     return nll.mean()
 
 
 def focal_ce(logits, pseudo_gt, teacher_conf, running_conf, p=3,
-             use_conf=True, compute_dtype=torch.float32, impl="kernel"):
+             use_conf=True, compute_dtype=torch.float32, impl="kernel",
+             share=None):
     """Focal-weighted self-supervision CE (focal_ce_conf by default).
 
     Per-pixel loss = (1 - clamp(prior,0))^p [class] * NLL, optionally
     multiplied by the teacher confidence, then averaged over ALL pixels
     (ignored pixels contribute zero).  Also returns the per-class mean-loss
     diagnostic (reference loss_per_class), detached.
+
+    With a ``share`` (this rank's views and rows of the global batch):
+    the batch-mean confidence at each pixel sums the slices' shares of it
+    over ``share.data`` (whose ranks hold the same rows); the loss, linear
+    in the per-pixel CE once the confidence is fixed, and the diagnostic
+    are this rank's shares of the global values, which add up over the
+    ranks.
     """
     c = logits.shape[-1]
     focal_w = (1.0 - torch.clamp(running_conf, min=0.0)) ** p  # [C]
     nll, valid, safe = _nll(logits, pseudo_gt, compute_dtype, impl=impl)
     w = focal_w[safe] * valid.float()
     ce = nll * w
-    if use_conf:
+    if share is not None:
+        if use_conf:
+            conf_mean = teacher_conf.float().mean(dim=0) * share.views
+            dist.all_reduce_sum_([conf_mean], share.data)
+            loss = (ce.mean(dim=0) * conf_mean).mean() * share.frac
+        else:
+            loss = ce.mean() * share.frac
+    elif use_conf:
         # the reference broadcast: loss_ce [B,H,W] * teacher_probs
         # [B,1,H,W] broadcasts to [B,B,H,W] before .mean(), i.e. each
         # pixel's CE is weighted by the BATCH-MEAN confidence at that
@@ -156,7 +202,8 @@ def focal_ce(logits, pseudo_gt, teacher_conf, running_conf, p=3,
     ce_d = ce.detach().reshape(-1, ce.shape[-1])
     bins = torch.zeros(ce_d.shape[0], c, dtype=torch.float32, device=ce.device)
     bins.scatter_add_(1, safe.reshape(ce_d.shape), ce_d)
-    return loss, bins.sum(dim=0) / ce_d.numel()
+    per_class = bins.sum(dim=0) / ce_d.numel()
+    return loss, per_class if share is None else per_class * share.frac
 
 
 def entropy(probs, eps=1e-5):

@@ -23,6 +23,12 @@ Data parallel, one process per device:
     dasac_tpu_torch.train.cli --multiprocessing-distributed ...``
     (``core/opts.launch_plan``).
 
+Height-sharded, ``TPU.PARTITION gspmd TPU.MESH_SP S``: the world is
+``n_data x S`` ranks (``TPU.MESH_DEVICES`` of them; 0 = ``S`` times as
+many as divide both batch dimensions), each frame's rows over ``S`` of
+them, e.g. ``--set TPU.PARTITION gspmd TPU.MESH_SP 2 TPU.MESH_DEVICES 4``
+spawns a ``(2, 2)`` world; joined, the world's size is the layout's.
+
 A rank that fails makes the spawning process fail with its traceback; a
 rank left waiting at a collective gives up after ``dist.TIMEOUT``.
 """
@@ -66,7 +72,7 @@ def main(argv=None, device=None):
     if launch is None:
         available = (torch.cuda.device_count() if device.type == "cuda"
                      else 1)
-        n = loop.mesh_size(cfg, available)
+        n = loop.mesh_size(cfg, available).ranks
         if device.type == "cuda" and n > available:
             raise ValueError("TPU.MESH_DEVICES=%d: only %d GPU(s) visible"
                              % (n, available))

@@ -16,10 +16,16 @@ decodes its slice of every global batch and runs its share of each step
 so each draws its own augmentation (``dasac_tpu``'s ``_fold_axis``).  The
 state is broadcast from rank 0 after start-up and resume; rank 0 alone
 writes events, panels and snapshots; validation is sharded over the ranks,
-with the confusions summed.  Height sharding (``TPU.PARTITION`` "gspmd",
-``TPU.MESH_SP`` > 1; ROADMAP Queue 1 item 10) raises
-``NotImplementedError``; ``TPU.REMAT`` (none / block / convs) goes to the
-model.
+with the confusions summed.  ``TPU.REMAT`` (none / block / convs) goes to
+the model.
+
+``TPU.PARTITION`` "gspmd" (``dasac_tpu``'s loop.py:39-77, 215-239): the
+world is a ``(data, sp)`` layout (``core.mesh.train_mesh``, ``TPU.MESH_SP``
+ranks a frame) running the global-batch steps (``make_gspmd_*``).  Rank
+``(d, s)`` decodes data slice ``d`` of every batch (the ``sp`` ranks of a
+slice decode the same frames), the generators are not salted (every rank
+draws the global batch's augmentation), and the validation batch rounds
+to the data axis.
 """
 
 import os
@@ -31,6 +37,7 @@ import torch
 from dasac_tpu_torch.aug import photometric as P
 from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.core.device import resolve_device
+from dasac_tpu_torch.core.mesh import train_groups, train_mesh
 from dasac_tpu_torch.core.state import create_train_state
 from dasac_tpu_torch.data import native_build
 from dasac_tpu_torch.data.factory import Loaders
@@ -52,43 +59,28 @@ _PANEL_ITEMS = 4
 
 
 def check_partition(cfg):
-    """Raise ``NotImplementedError`` for the partitioning the port lacks,
-    height sharding, and ``ValueError`` for an unknown ``TPU.PARTITION``
-    or ``TPU.REMAT``."""
+    """Raise ``ValueError`` for an unknown ``TPU.PARTITION`` or
+    ``TPU.REMAT``."""
     tpu = cfg.TPU
     remat_mode(tpu.REMAT)
     if tpu.PARTITION not in ("shard_map", "gspmd"):
         raise ValueError("unknown TPU.PARTITION %r (expected 'shard_map' or "
                          "'gspmd')" % (tpu.PARTITION,))
-    unsupported = []
-    if tpu.PARTITION == "gspmd":
-        unsupported.append("TPU.PARTITION='gspmd' (height sharding, ROADMAP "
-                           "Queue 1 item 10)")
-    if tpu.MESH_SP > 1:
-        unsupported.append("TPU.MESH_SP=%d (height sharding, ROADMAP Queue 1 "
-                           "item 10)" % tpu.MESH_SP)
-    if unsupported:
-        raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
 
 
-def check_divisible(cfg, n):
-    """The global batch dimensions must split evenly over ``n`` ranks."""
-    for name, v in (("TRAIN.BATCH_SIZE", cfg.TRAIN.BATCH_SIZE),
-                    ("TRAIN.NUM_GROUPS", cfg.TRAIN.NUM_GROUPS)):
-        if v % n:
-            raise ValueError("{}={} must be divisible by the {}-device "
-                             "mesh".format(name, v, n))
-
-
-def mesh_size(cfg, available):
-    """The number of data-parallel ranks ``cfg`` asks for:
-    ``TPU.MESH_DEVICES``, where 0 means the largest count up to
-    ``available`` devices that divides both batch dimensions."""
+def mesh_size(cfg, available, world=None, n_local=None):
+    """The ``core.mesh.TrainLayout`` ``cfg`` asks for: the ranks the
+    train CLI spawns over ``available`` devices, or the layout of a
+    ``world`` already joined (``core.mesh.train_mesh``)."""
     check_partition(cfg)
-    n = cfg.TPU.MESH_DEVICES or dist.auto_mesh_size(
-        available, cfg.TRAIN.BATCH_SIZE, cfg.TRAIN.NUM_GROUPS)
-    check_divisible(cfg, n)
-    return n
+    return train_mesh(cfg, available, world, n_local)
+
+
+def _local_ranks():
+    """The ranks this host runs in a joined world (torchrun's
+    ``LOCAL_WORLD_SIZE``), or ``None`` when nothing says."""
+    n = os.environ.get("LOCAL_WORLD_SIZE")
+    return int(n) if n else None
 
 
 class Trainer:
@@ -104,21 +96,32 @@ class Trainer:
         self.world, self.rank = dist.world_size(), dist.rank()
         self.is_main = self.rank == 0
         if self.group is None:
-            if mesh_size(cfg, 1) > 1:
+            self.layout = mesh_size(cfg, 1)
+            if self.layout.ranks > 1:
                 raise ValueError(
                     "TPU.MESH_DEVICES={} asks for one process per device: "
                     "train through train.cli, which spawns them, or join a "
                     "world with --multiprocessing-distributed".format(
                         cfg.TPU.MESH_DEVICES))
         else:
-            check_partition(cfg)
-            check_divisible(cfg, self.world)
+            self.layout = mesh_size(cfg, 1, world=self.world,
+                                    n_local=_local_ranks())
+        self.gspmd = self.layout.gspmd
+        # gspmd in a world: the (data, sp) groups; the loaders slice the
+        # batch by data index
+        self.groups = (train_groups(self.layout, self.rank, self.group)
+                       if self.gspmd and self.group is not None else None)
+        n_data, d = ((self.layout.n_data, self.groups.d)
+                     if self.groups is not None else (self.world, self.rank))
+        self.n_data = n_data
         print("Mesh: {} device(s) / {} process(es){}".format(
             self.world, self.world,
+            " (gspmd {}x{})".format(self.layout.n_data, self.layout.n_sp)
+            if self.gspmd else
             " (data-parallel)" if self.world > 1 else ""))
         self._build_on_rank0_first(cfg)
 
-        self.loaders = Loaders(cfg, num_replicas=self.world, rank=self.rank,
+        self.loaders = Loaders(cfg, num_replicas=n_data, rank=d,
                                seed=self.seed)
         self.nclass = self.loaders.num_classes
         self.class_names = self.loaders.class_names
@@ -178,17 +181,25 @@ class Trainer:
         self.best = BestTracker(self.checkpointer, best)
         self.state = state
 
-        g = self.group
-        if cfg.MODEL.BASELINE:
-            self.train_step = steps_lib.make_abn_step(self.scfg, self.device,
-                                                      group=g)
+        g, gs = self.group, self.groups
+        if gs is not None:
+            self.train_step = (steps_lib.make_gspmd_abn_step
+                               if cfg.MODEL.BASELINE else
+                               steps_lib.make_gspmd_sac_step)(
+                self.scfg, gs, self.device)
+            self.eval_step = steps_lib.make_gspmd_eval_step(
+                self.scfg, gs, self.device)
+            self.target_eval_step = steps_lib.make_gspmd_target_eval_step(
+                self.scfg, gs, self.device)
         else:
-            self.train_step = steps_lib.make_sac_step(self.scfg, self.device,
+            self.train_step = (steps_lib.make_abn_step
+                               if cfg.MODEL.BASELINE else
+                               steps_lib.make_sac_step)(
+                self.scfg, self.device, group=g)
+            self.eval_step = steps_lib.make_eval_step(self.scfg, self.device,
                                                       group=g)
-        self.eval_step = steps_lib.make_eval_step(self.scfg, self.device,
-                                                  group=g)
-        self.target_eval_step = steps_lib.make_target_eval_step(
-            self.scfg, self.device, group=g)
+            self.target_eval_step = steps_lib.make_target_eval_step(
+                self.scfg, self.device, group=g)
         self.visual_step = steps_lib.make_visual_step(self.scfg, self.device)
 
         logdir = getattr(args, "logdir", None) or "./logs"
@@ -224,10 +235,11 @@ class Trainer:
 
     def _generator(self, *salt):
         """A generator on the device whose seed depends only on ``--seed``,
-        ``salt`` and, in a world of more than one rank, the rank (the
-        counterpart of ``jax.random.fold_in`` and ``_fold_axis``)."""
+        ``salt`` and, in a shard_map world of more than one rank, the rank
+        (the counterpart of ``jax.random.fold_in`` and ``_fold_axis``)."""
         seed = self.seed
-        for s in salt + ((self.rank,) if self.world > 1 else ()):
+        own = self.world > 1 and not self.gspmd
+        for s in salt + ((self.rank,) if own else ()):
             seed = (seed * 1_000_003 + s) % (2 ** 63 - 1)
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -323,13 +335,14 @@ class Trainer:
             return self._validation_target(epoch, max_batches)
 
         bs = max(1, self.cfg.TRAIN.BATCH_SIZE // 2)
-        # sharded: the global batch rounds to whole per-rank batches, and
-        # each rank decodes only its slice of it (the eval step sums the
-        # confusions over the ranks)
-        bs = max(self.world, (bs // self.world) * self.world)
-        loader = self.loaders.val_loader(split, batch_size=bs // self.world,
+        # sharded: the global batch rounds to whole per-slice batches (the
+        # data axis under gspmd), and each rank decodes only its slice of
+        # it (the eval step sums the confusions over the ranks)
+        n = self.n_data
+        bs = max(n, (bs // n) * n)
+        loader = self.loaders.val_loader(split, batch_size=bs // n,
                                          max_batches=max_batches,
-                                         distributed=self.world > 1)
+                                         distributed=n > 1)
         conf = None
         first_batch = None
         for imgs, lbls in loader:

@@ -23,8 +23,26 @@ small all-reduce; the running confidence averages the batch mean over the
 ranks; confusions are summed.  The model's BN layers were built with the
 same group (``nn.factory.build_model``).  Without a group nothing is
 communicated.
+
+gspmd (``TPU.PARTITION`` gspmd, the ``make_gspmd_*`` builders; the
+counterpart of ``dasac_tpu``'s ``gspmd_train_step`` and its siblings):
+the ranks of a ``(data, sp)`` world (``core.mesh.TrainGroups``) run the
+GLOBAL-batch step together.  Rank ``(d, s)`` holds data slice ``d`` of
+the batch as whole frames; the augmentation draws cover the global batch
+from the one generator every rank holds, and slice ``d`` is applied
+(dropout masks too, ``nn.layers.batch_slice``), so the ``sp`` ranks of a
+slice hold the same frames.  Each forward runs on this rank's rows
+``spatial.split(H, n_sp, s)`` of them (``nn/spatial.py``); the teacher's
+stride-8 logits are all-gathered over ``sp``, refined on whole frames,
+and the pseudo-labels and confidences cut to this rank's rows.  The
+losses are this rank's shares (``sac.core.Share``: local means times
+the rank's share of the pixels), the gradients are SUMMED over the
+world, the metrics are the sums of the shares, and the eval confusions
+count each rank's own rows, summed over the world.  In a world of one
+the steps are bit-equal to the one-process steps.
 """
 
+import contextlib
 from typing import NamedTuple, Tuple
 
 import torch
@@ -35,6 +53,7 @@ from dasac_tpu_torch.aug import pipelines
 from dasac_tpu_torch.aug.warp import warp_affine
 from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.core.device import resolve_device
+from dasac_tpu_torch.nn import layers, spatial
 from dasac_tpu_torch.sac import core as sac_core
 from dasac_tpu_torch.sac import refine as sac_refine
 from dasac_tpu_torch.train.metrics import confusion_matrix
@@ -160,14 +179,16 @@ def _to_device(device, *arrays):
                  for a in arrays)
 
 
-def augment_target(scfg, generator, images, labels):
-    """The target groups' views under ``scfg``'s target augmentation."""
+def augment_target(scfg, generator, images, labels, part=None):
+    """The target groups' views under ``scfg``'s target augmentation
+    (``part``: see ``aug/pipelines.py``)."""
     return pipelines.augment_target_groups(
         generator, images, labels, group_size=scfg.group_size,
         target_scale=scfg.target_scale, zoom=scfg.zoom,
         group_hflip=scfg.group_hflip, guided_hflip=scfg.guided_hflip,
         blur=scfg.tgt_blur, jitter=scfg.tgt_jitter,
-        greyscale=scfg.tgt_greyscale, mean=scfg.mean, std=scfg.std)
+        greyscale=scfg.tgt_greyscale, mean=scfg.mean, std=scfg.std,
+        part=part)
 
 
 def _average_grads(model, group):
@@ -202,18 +223,38 @@ def make_sac_step(scfg: StepConfig, device=None, group=None):
     return step
 
 
-def augment_sac(scfg: StepConfig, generator, batch):
+def augment_sac(scfg: StepConfig, generator, batch, part=None):
     """The SAC step's augmentation: ``batch`` = (src_images, src_labels,
     tgt_images, tgt_labels) on one device -> (src_frames, src_lbls,
-    views)."""
+    views); ``part``: see ``aug/pipelines.py``."""
     src_images, src_labels, tgt_images, tgt_labels = batch
     src_frames, src_lbls = pipelines.augment_source_batch(
         generator, src_images, src_labels, crop_hw=scfg.crop_hw,
         scale_range=scfg.src_scale, hflip=scfg.src_hflip,
         jitter=scfg.src_jitter, blur=scfg.src_blur,
-        mean=scfg.src_mean, std=scfg.src_std)
-    views = augment_target(scfg, generator, tgt_images, tgt_labels)
+        mean=scfg.src_mean, std=scfg.src_std, part=part)
+    views = augment_target(scfg, generator, tgt_images, tgt_labels, part)
     return src_frames, src_lbls, views
+
+
+def _update_teacher(state, scfg):
+    """The teacher EMA / lazy init (sac.py:70-102, train.py:294): the
+    teacher's tensors by name, then ``maybe_update_teacher``'s
+    ``(slow_init, running_conf, teacher_diff)``.  The lazy init runs
+    whenever it has not happened yet (the step counter is global, the
+    reference's per epoch)."""
+    do_update = (state.step % scfg.net_momentum_iter == 0
+                 or not state.slow_init)
+    student = {**state.student_params(), **state.student_stats()}
+    teacher = {**state.teacher_params, **state.teacher_stats}
+    names = list(teacher)
+    with torch.no_grad():
+        return (teacher, *sac_core.maybe_update_teacher(
+            [teacher[k] for k in names],
+            [student[k].detach() for k in names],
+            state.slow_init, state.running_conf,
+            momentum=scfg.net_momentum,
+            threshold_beta=scfg.threshold_beta, do_update=do_update))
 
 
 def make_sac_views_step(scfg: StepConfig, debug=False, group=None):
@@ -238,23 +279,9 @@ def make_sac_views_step(scfg: StepConfig, debug=False, group=None):
     def views_step(state, src_frames, src_lbls, views, generator=None):
         model, opt = state.model, state.optimizer
 
-        # ---- teacher EMA / lazy init (sac.py:70-102, train.py:294) --------
-        # the lazy init runs whenever it has not happened yet (our step
-        # counter is global, the reference's per epoch)
-        do_update = (state.step % scfg.net_momentum_iter == 0
-                     or not state.slow_init)
-        student = {**state.student_params(), **state.student_stats()}
-        teacher = {**state.teacher_params, **state.teacher_stats}
-        names = list(teacher)
+        teacher, slow_init, running_conf, teacher_diff = _update_teacher(
+            state, scfg)
         with torch.no_grad():
-            slow_init, running_conf, teacher_diff = \
-                sac_core.maybe_update_teacher(
-                    [teacher[k] for k in names],
-                    [student[k].detach() for k in names],
-                    state.slow_init, state.running_conf,
-                    momentum=scfg.net_momentum,
-                    threshold_beta=scfg.threshold_beta, do_update=do_update)
-
             # ---- teacher branch on clean views (no grad) ------------------
             t_logits, _ = functional_call(
                 model, teacher, (views.frames_clean,),
@@ -350,12 +377,13 @@ def make_abn_step(scfg: StepConfig, device=None, group=None):
     return step
 
 
-def augment_abn(scfg: StepConfig, generator, batch):
+def augment_abn(scfg: StepConfig, generator, batch, part=None):
     """The ABN step's augmentation: ``batch`` = (src_images, src_labels,
     tgt_images, tgt_labels) on one device -> (src_frames, src_lbls,
     tgt_frames, tgt_lbls).  Both halves go through the source pipeline; the
     source frames are normalized with ``src_mean``/``src_std``, the target
-    frames with the standard ``mean``/``std``."""
+    frames with the standard ``mean``/``std``.  ``part``: see
+    ``aug/pipelines.py``."""
     out = ()
     for images, labels, mean, std in (
             (*batch[:2], scfg.src_mean, scfg.src_std),
@@ -363,7 +391,8 @@ def augment_abn(scfg: StepConfig, generator, batch):
         out += pipelines.augment_source_batch(
             generator, images, labels, crop_hw=scfg.crop_hw,
             scale_range=scfg.src_scale, hflip=scfg.src_hflip,
-            jitter=scfg.src_jitter, blur=scfg.src_blur, mean=mean, std=std)
+            jitter=scfg.src_jitter, blur=scfg.src_blur, mean=mean, std=std,
+            part=part)
     return out
 
 
@@ -484,6 +513,271 @@ def make_target_eval_step(scfg: StepConfig, device=None, group=None):
             "teacher_labels": confusion_matrix(pseudo, views.labels, c),
         }
         dist.all_reduce_sum_(list(confs.values()), group)
+        return confs
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# gspmd: the global-batch steps over a (data, sp) world
+# ---------------------------------------------------------------------------
+
+class Global:
+    """This rank's place in a gspmd world (``groups``: a
+    ``core.mesh.TrainGroups``): its data slice and rows of the global
+    batch."""
+
+    def __init__(self, groups):
+        self.groups = groups
+        self.part = (groups.n_data, groups.d)
+        self.sharded = (spatial.Sharded(groups.sp) if groups.n_sp > 1
+                        else None)
+
+    @contextlib.contextmanager
+    def frame(self):
+        """The context of one forward on this rank's rows: yields the
+        ``spatial.Frame`` (``None`` for whole frames)."""
+        with layers.batch_slice(*self.part), (
+                self.sharded.frame() if self.sharded is not None
+                else contextlib.nullcontext()) as f:
+            yield f
+
+    def run(self, fn, x):
+        """``fn`` of this rank's rows of the whole frames ``x``."""
+        with self.frame() as f:
+            return fn(x if f is None else f.shard(x, 1))
+
+    def rows(self, x):
+        """This rank's rows of the whole frames ``x`` (rows on axis 1)."""
+        if self.sharded is None:
+            return x
+        lo, hi = self.sharded.own(x.shape[1])
+        return x.narrow(1, lo, hi - lo)
+
+    def share(self, whole):
+        """The ``sac.core.Share`` of this rank's rows of the slice
+        ``whole`` (``[B, H, ...]``) of the global batch."""
+        g = self.groups
+        h = whole.shape[1]
+        lo, hi = spatial.split(h, g.n_sp, g.s)
+        views = 1.0 / g.n_data
+        return sac_core.Share(g.world, views * ((hi - lo) / h), views,
+                              g.data)
+
+    def sum(self, tensors):
+        """The metrics: each rank's shares, summed over the world."""
+        out = {k: v.detach().clone() for k, v in tensors.items()}
+        dist.all_reduce_sum_(list(out.values()), self.groups.world)
+        return out
+
+
+def _teacher_forward(glob, model, teacher, frames, upsample):
+    """The teacher's forward on this rank's rows of the whole frames: its
+    stride-8 logits all-gathered over ``sp`` (whole frames), and the
+    upsampled logits of this rank's rows (``None`` without
+    ``upsample``)."""
+    kw = dict(train=False, update_stats=False, upsample=upsample)
+    with glob.frame() as f:
+        x = frames if f is None else f.shard(frames, 1)
+        logits, up = functional_call(model, teacher, (x,), kw)
+        if f is not None:
+            logits = f.all_gather(logits, 1, f.rows(logits, 1))
+    return logits, up
+
+
+def make_gspmd_sac_step(scfg: StepConfig, groups, device=None):
+    """:func:`make_sac_step` over a gspmd world: ``batch`` is this rank's
+    data slice (``groups.d``) of the global batch, whole frames."""
+    device = resolve_device(device)
+    glob = Global(groups)
+    views_step = make_gspmd_sac_views_step(scfg, groups)
+
+    def step(state, batch, generator):
+        return views_step(state, *augment_sac(
+            scfg, generator, _to_device(device, *batch), glob.part),
+            generator)
+
+    return step
+
+
+def make_gspmd_sac_views_step(scfg: StepConfig, groups):
+    """:func:`make_sac_views_step` over a gspmd world: the inputs are this
+    rank's data slice of the pre-augmented global batch (whole frames);
+    every rank computes the global step's update (the module's
+    docstring)."""
+    glob = Global(groups)
+    rd = torch.bfloat16 if scfg.refine_dtype == "bfloat16" else None
+    rd_pl = _DTYPES[scfg.refine_dtype]
+    ld = _DTYPES[scfg.loss_dtype]
+
+    def views_step(state, src_frames, src_lbls, views, generator=None):
+        model, opt = state.model, state.optimizer
+        teacher, slow_init, running_conf, teacher_diff = _update_teacher(
+            state, scfg)
+        with torch.no_grad():
+            t_logits, _ = _teacher_forward(glob, model, teacher,
+                                           views.frames_clean, False)
+            refined, diags = sac_refine.refine(
+                t_logits, views.affine, views.affine_inv, views.padding,
+                group_size=scfg.group_size, pool=scfg.pool,
+                pool_on=scfg.pool_on, compute_dtype=rd, res=scfg.refine_res)
+            probs = diags["teacher_probs"]
+            running_conf = sac_core.update_running_conf(
+                running_conf, glob.rows(probs), scfg.stat_momentum,
+                scfg.threshold_beta, share=glob.share(probs))
+            pseudo, conf, _ = sac_core.pseudo_labels(
+                refined, views.padding, running_conf,
+                upper=scfg.run_conf_upper, lower=scfg.run_conf_lower,
+                threshold_beta=scfg.threshold_beta,
+                discount=scfg.conf_discount, compute_dtype=rd_pl)
+            share = glob.share(pseudo)
+            pseudo, conf = glob.rows(pseudo), glob.rows(conf)
+            del t_logits, diags, refined, probs
+
+        # ---- source backward, then target backward, on this rank's rows --
+        opt.zero_grad(set_to_none=True)
+        kw = dict(train=True, update_stats=False, generator=generator)
+        if scfg.target_only:
+            ce_src = torch.zeros((), device=running_conf.device)
+        else:
+            _, src_up = glob.run(lambda x: model(x, **kw), src_frames)
+            ce_src = sac_core.cross_entropy_mean(
+                src_up, glob.rows(src_lbls), compute_dtype=ld,
+                impl=scfg.ce_impl, share=glob.share(src_lbls))
+            ce_src.backward()
+            del src_up
+        _, tgt_up = glob.run(lambda x: model(x, **kw), views.frames_aug)
+        self_ce, per_class = sac_core.focal_ce(
+            tgt_up, pseudo, conf, running_conf, p=scfg.focal_p,
+            use_conf=scfg.use_conf_loss, compute_dtype=ld, impl=scfg.ce_impl,
+            share=share)
+        (scfg.lr_target * self_ce).backward()
+        del tgt_up
+        dist.all_reduce_sum_grads_(model.parameters(), groups.world)
+        opt.step()
+
+        state.running_conf = running_conf
+        state.slow_init = slow_init
+        state.step += 1
+        metrics = glob.sum({
+            "src_loss_ce": ce_src,
+            "self_ce": self_ce,
+            "pseudo_cover": (pseudo != sac_core.IGNORE).float().mean()
+                            * share.frac,
+            "self_ce_per_class": per_class,
+        })
+        metrics["teacher_diff"] = teacher_diff   # the same on every rank
+        return metrics
+
+    return views_step
+
+
+def make_gspmd_abn_step(scfg: StepConfig, groups, device=None):
+    """:func:`make_abn_step` over a gspmd world: ``batch`` is this rank's
+    data slice of the global batch."""
+    device = resolve_device(device)
+    glob = Global(groups)
+    frames_step = make_gspmd_abn_frames_step(scfg, groups)
+
+    def step(state, batch, generator):
+        return frames_step(state, *augment_abn(
+            scfg, generator, _to_device(device, *batch), glob.part),
+            generator)
+
+    return step
+
+
+def make_gspmd_abn_frames_step(scfg: StepConfig, groups):
+    """:func:`make_abn_frames_step` over a gspmd world, on this rank's
+    data slice of the pre-augmented global batch: the live BN statistics
+    are those of the global batch (sums and counts over the world under
+    ``sp``), the source loss this rank's share, the gradients summed."""
+    glob = Global(groups)
+
+    def frames_step(state, src_frames, src_lbls, tgt_frames, tgt_lbls,
+                    generator=None):
+        model, opt = state.model, state.optimizer
+        kw = dict(train=True, update_stats=True, generator=generator)
+        opt.zero_grad(set_to_none=True)
+        _, src_up = glob.run(lambda x: model(x, **kw), src_frames)
+        ce_src = sac_core.cross_entropy_mean(
+            src_up, glob.rows(src_lbls), impl=scfg.ce_impl,
+            share=glob.share(src_lbls))
+        ce_src.backward()
+        del src_up
+        dist.all_reduce_sum_grads_(model.parameters(), groups.world)
+        opt.step()
+
+        with torch.no_grad():
+            _, tgt_up = glob.run(lambda x: model(x, **kw), tgt_frames)
+            ce_tgt = sac_core.cross_entropy_mean(
+                tgt_up, glob.rows(tgt_lbls), impl=scfg.ce_impl,
+                share=glob.share(tgt_lbls))
+        state.step += 1
+        return glob.sum({"src_loss_ce": ce_src, "loss_ce": ce_tgt})
+
+    return frames_step
+
+
+def make_gspmd_eval_step(scfg: StepConfig, groups, device=None,
+                         teacher=False):
+    """:func:`make_eval_step` over a gspmd world: this rank's data slice
+    of the global batch; the confusion counts this rank's rows, summed
+    over the world."""
+    device = resolve_device(device)
+    glob = Global(groups)
+
+    @torch.no_grad()
+    def step(state, images_u8, labels):
+        images_u8, labels = _to_device(device, images_u8, labels)
+        x = P.normalize(images_u8.float() / 255.0, scfg.mean, scfg.std)
+        _, up = glob.run(lambda xs: _eval_forward(state, xs, teacher), x)
+        conf = confusion_matrix(up.argmax(-1), glob.rows(labels),
+                                scfg.num_classes)
+        dist.all_reduce_sum_([conf], groups.world)
+        return conf
+
+    return step
+
+
+def make_gspmd_target_eval_step(scfg: StepConfig, groups, device=None):
+    """:func:`make_target_eval_step` over a gspmd world: the draws of the
+    global batch's augmentation, this rank's slice applied; the forwards
+    on this rank's rows, the refine chain on whole frames; every
+    confusion counts this rank's rows, summed over the world."""
+    device = resolve_device(device)
+    glob = Global(groups)
+    rd = torch.bfloat16 if scfg.refine_dtype == "bfloat16" else None
+    rd_pl = _DTYPES[scfg.refine_dtype]
+    c = scfg.num_classes
+
+    @torch.no_grad()
+    def step(state, tgt_images, tgt_labels, generator):
+        images, labels = _to_device(device, tgt_images, tgt_labels)
+        views = augment_target(scfg, generator, images, labels, glob.part)
+        _, student_up = glob.run(lambda xs: _eval_forward(state, xs),
+                                 views.frames_aug)
+        t_logits, t_up = _teacher_forward(
+            glob, state.model, {**state.teacher_params, **state.teacher_stats},
+            views.frames_clean, True)
+        refined, _ = sac_refine.refine(
+            t_logits, views.affine, views.affine_inv, views.padding,
+            group_size=scfg.group_size, pool=scfg.pool, pool_on=scfg.pool_on,
+            compute_dtype=rd, res=scfg.refine_res)
+        pseudo, _, _ = sac_core.pseudo_labels(
+            refined, views.padding, state.running_conf,
+            upper=scfg.run_conf_upper, lower=scfg.run_conf_lower,
+            threshold_beta=scfg.threshold_beta, discount=scfg.conf_discount,
+            compute_dtype=rd_pl)
+        lbl = glob.rows(views.labels)
+        confs = {
+            "logits_up": confusion_matrix(student_up.argmax(-1), lbl, c),
+            "teacher_init": confusion_matrix(t_up.argmax(-1), lbl, c),
+            "teacher_refined": confusion_matrix(
+                glob.rows(refined.argmax(-1)), lbl, c),
+            "teacher_labels": confusion_matrix(glob.rows(pseudo), lbl, c),
+        }
+        dist.all_reduce_sum_(list(confs.values()), groups.world)
         return confs
 
     return step

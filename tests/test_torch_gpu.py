@@ -698,3 +698,64 @@ def test_adam_views_step_matches_cpu(cuda):
 
     out = chip_smoke.check_adam_agreement(cuda)
     assert out["grad_rel_l2_worst"] < 1e-3
+
+
+def test_one_rank_nccl_gspmd_steps_equal_the_one_process_steps(
+        cuda, monkeypatch):
+    """gspmd over a NCCL world of one, as (1, 1): the ABN frames step and
+    the SAC views step of the shallow r101 (f32, 64x64) equal the
+    one-process steps (cuDNN's deterministic algorithms on) as closely as
+    two one-process runs equal each other: to the bit, but for the SAC
+    step's per-class diagnostic, whose CUDA ``scatter_add_`` adds in any
+    order."""
+    from dasac_tpu_torch.aug import pipelines
+    from dasac_tpu_torch.core.mesh import TrainLayout, train_groups
+
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    scfg = steps.StepConfig(num_classes=19, crop_hw=(64, 64), group_size=2,
+                            run_conf_lower=0.01, ce_impl="kernel")
+    frames = _abn_frames(cuda, 2, (64, 64), 0)
+    images = (torch.rand(2, 64, 64, 3, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda) * 255).to(torch.uint8)
+    views = steps.augment_target(scfg, torch.Generator(
+        device=cuda).manual_seed(4), images, frames[1])
+    dist.init(dist.Launch("127.0.0.1:%d" % find_free_port(), 1, 0),
+              torch.device("cuda", 0))
+    try:
+        groups = train_groups(TrainLayout(1, 1, True), 0, dist.group())
+        runs = []
+        for g in (groups, None, None):
+            out = {}
+            for kind in ("abn", "sac"):
+                state = _abn_state("deeplabv2_resnet101", cuda,
+                                   g and g.world, layers=(1, 1, 1, 1))
+                if kind == "abn":
+                    step = (steps.make_gspmd_abn_frames_step(scfg, g) if g
+                            else steps.make_abn_frames_step(scfg))
+                    m = step(state, *frames)
+                else:
+                    step = (steps.make_gspmd_sac_views_step(scfg, g) if g
+                            else steps.make_sac_views_step(scfg))
+                    m = step(state, *frames[:2], views)
+                out[kind] = (m, state.model.state_dict(),
+                             state.running_conf.clone())
+            runs.append(out)
+    finally:
+        dist.destroy()
+    assert isinstance(views, pipelines.TargetViews)
+
+    def diff(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    for kind in ("abn", "sac"):
+        g, p, again = (r[kind] for r in runs)
+        pairs = [(g[0][k], p[0][k], again[0][k]) for k in p[0]]
+        pairs += [(g[1][k], p[1][k], again[1][k]) for k in p[1]]
+        pairs.append((g[2], p[2], again[2]))
+        for i, (a, b, c) in enumerate(pairs):
+            assert diff(a, b) <= 2 * diff(c, b), (kind, i)
+        # the losses and the state: to the bit
+        assert all(torch.equal(g[0][k], p[0][k]) for k in p[0]
+                   if k != "self_ce_per_class"), kind
+        assert all(torch.equal(g[1][k], p[1][k]) for k in p[1]), kind

@@ -284,23 +284,32 @@ def test_trainer_loads_init_model(root, tmp_path, torchvision_sd, capsys,
     ("TPU.MESH_DEVICES", "2"), ("TPU.PARTITION", "gspmd"),
     ("TPU.MESH_SP", "2"), ("TPU.REMAT", "everything")])
 def test_multi_device_settings_raise(key, value):
-    """Height sharding still raises, naming its ROADMAP item, and a remat
-    mode other than none/block/convs raises ``remat_mode``'s error; a
-    data-parallel mesh is no longer refused: it is the number of ranks the
-    train CLI spawns (tests/test_torch_dist.py runs them)."""
+    """A remat mode other than none/block/convs raises ``remat_mode``'s
+    error; a multi-device setting is the layout of the ranks the train CLI
+    spawns (tests/test_torch_dist.py and tests/test_torch_gspmd.py run
+    them), which one process alone cannot be."""
     tconfig.cfg_from_list([key, value, "TRAIN.NUM_GROUPS", "2"])
-    if key == "TPU.MESH_DEVICES":
-        assert loop.mesh_size(tconfig.cfg, available=1) == 2
-        # one process alone cannot be a mesh of 2
-        with pytest.raises(ValueError, match="one process per device"):
-            loop.Trainer(None, tconfig.cfg, device="cpu")
-        return
     if key == "TPU.REMAT":
         with pytest.raises(ValueError, match="remat must be none/block/convs"):
             loop.mesh_size(tconfig.cfg, available=1)
         return
-    with pytest.raises(NotImplementedError, match="item 10"):
-        loop.mesh_size(tconfig.cfg, available=1)
+    if key == "TPU.MESH_DEVICES":
+        assert loop.mesh_size(tconfig.cfg, available=1) == (2, 1, False)
+        # one process alone cannot be a mesh of 2
+        with pytest.raises(ValueError, match="one process per device"):
+            loop.Trainer(None, tconfig.cfg, device="cpu")
+        return
+    if key == "TPU.PARTITION":
+        # gspmd over a data mesh: as many data slices as devices divide
+        # both batch dimensions, whole frames
+        assert loop.mesh_size(tconfig.cfg, available=1) == (1, 1, True)
+        assert loop.mesh_size(tconfig.cfg, available=4) == (2, 1, True)
+        return
+    # TPU.MESH_SP counts under gspmd only, as in dasac_tpu
+    assert loop.mesh_size(tconfig.cfg, available=4) == (2, 1, False)
+    tconfig.cfg_from_list(["TPU.PARTITION", "gspmd"])
+    assert loop.mesh_size(tconfig.cfg, available=4) == (2, 2, True)
+    assert loop.mesh_size(tconfig.cfg, available=1) == (1, 2, True)
 
 
 def test_profile_writes_a_trace(root, tmp_path):
