@@ -244,6 +244,28 @@ no result line:
               state equal.  Per rank and step: ms, peak GB, exchanges
               and bytes forward and backward by kind, BN collectives, CE
               launches by path.
+ 22. optimizers  optax's 26 optimizers by name (``MODEL.OPT``;
+              ``train/optax_rules.py``) on phase 4's flagship model and
+              batch: (a) one SAC step's gradients (each tensor at RMS 1,
+              times 1, 0.5 and 2 at the 3 steps), 3 optimizer steps on the
+              card and on the CPU from the same parameters (``noisy_sgd``:
+              the same draws; the rules of ``OPTAX_LR`` at a larger base
+              LR): every parameter tensor moved by at least 1e3 f32
+              epsilons of its magnitude, each element within 1e-3 of its
+              tensor's move plus 4 epsilons of itself, every state tensor
+              within rtol 1e-4 / atol 1e-6 of its largest magnitude (the
+              sign rules may differ on 1e-6 of the elements); (b) the
+              optimizer step alone in CUDA-event ms beside SGD's and the
+              state in GB, and for SGD, ``adamw`` and ``sm3`` (every name
+              under ``--optimizers-only``) 4 flagship SAC steps, median ms
+              of the last 2, CE launches 2 + 2 a step all bulk; (c) the state
+              saved through ``Checkpointer`` and loaded into a fresh state:
+              every field equal, and the next step bit-equal to the
+              uninterrupted one's; then the train CLI with ``MODEL.OPT
+              adafactor`` for 2 ABN steps on phase 10's synthetic root and
+              ``--resume auto`` for 2 more: the resumed state equals the
+              saved one (files under ``build/smoke_optax``, removed
+              after);
 Each phase prints one JSON line with the card's name and power limit.
 Phases 10, 13, 14, 15, 17 and 18 call each entry point with cuDNN autotuning
 off, as a new process starts, and check that the entry point turned it on.
@@ -258,12 +280,13 @@ train stage (``launches_recipe``), phase 18's (``launches_infer_mesh``:
 inference launches no CE kernel, so 0), phase 19's by part
 (``launches_remat_opt``), phase 20's by tool (``launches_step_tools``) and
 phase 21's (``launches_train_mesh``: the NCCL world's steps, each gloo
-rank's cases, by path).
+rank's cases, by path) and phase 22's by timed name and CLI stage
+(``launches_optimizers``).
 
 ``python3 chip_smoke.py --infer-mesh-only`` runs phase 18 alone;
-``--remat-only``, ``--step-tools-only`` and ``--train-mesh-only`` build
-the CE kernels and run phase 19, 20 or 21 alone (several flags: those
-phases).
+``--remat-only``, ``--step-tools-only``, ``--train-mesh-only`` and
+``--optimizers-only`` build the CE kernels and run phase 19, 20, 21 or 22
+alone (several flags: those phases).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -4311,6 +4334,397 @@ def run_train_mesh(ce, ce_triton, device, card):
     return dict(nccl_one=one, gloo_ranks=gloo, gloo_by_path=by_path)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: optax's optimizers by name
+# ---------------------------------------------------------------------------
+
+OPTAX_BASE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "smoke_optax")
+OPTAX_STEPS = 3        # optimizer steps, card against CPU
+# (a)'s step t takes OPTAX_GRAD_SCALE[t] times the one SAC step's
+# gradients (exact in f32): with equal gradients adan's differences of
+# successive gradients would be f32 rounding noise
+OPTAX_GRAD_SCALE = (1.0, 0.5, 2.0)
+OPTAX_SAC_STEPS = 4    # flagship SAC steps a timed name; the last 2 timed
+# the names whose SAC step is timed: the baseline, a rule over lists and
+# the rule that loops over tensors (its step differs from SGD's by the
+# optimizer's ms, within the step's noise of ~20 ms otherwise);
+# ``--optimizers-only`` times every name
+OPTAX_TIMED = ("SGD", "adamw", "sm3")
+# (a): a parameter's error, card against CPU, within OPTAX_DISP_RTOL of
+# its tensor's largest displacement in the CPU's run plus OPTAX_ULPS f32
+# epsilons of its own magnitude (the roundings of p + u); every tensor
+# moves by at least OPTAX_MOVED epsilons of its largest magnitude, so that
+# the bound is a fraction of the move (at most 0.5%)
+OPTAX_DISP_RTOL = 1e-3
+OPTAX_ULPS = 4
+OPTAX_MOVED = 1e3
+# state tensors: rtol, and atol scaled by the tensor's largest magnitude
+OPTAX_TOL = dict(rtol=1e-4, atol=1e-6)
+OPTAX_SIGN_SHARE = 1e-6  # share of elements a sign rule may flip
+# (a)'s base LRs other than the bench's 2.5e-4, for the rules whose 3
+# steps at it move some r101 tensor by fewer than 5 * OPTAX_MOVED
+# epsilons (lars: its trust coefficient is 1e-3; adadelta: its first steps
+# are sqrt(eps) / rms(g); novograd: g / ||g|| over the whole tensor; the
+# others by 1e3 to 5e3)
+OPTAX_LR = {"adadelta": 0.25, "adafactor": 2.5e-3, "adagrad": 2.5e-3,
+            "fromage": 2.5e-3, "lamb": 2.5e-3, "lars": 0.25,
+            "novograd": 2.5e-2, "rprop": 2.5e-3, "sm3": 2.5e-3}
+R101 = "deeplabv2_resnet101"
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _beyond(got, ref, rtol, atol):
+    """(max abs error, share of elements beyond ``atol + rtol |ref|``)."""
+    got, ref = got.float(), ref.float()
+    if not ref.numel():
+        return 0.0, 0.0
+    err = (got - ref).abs()
+    return (float(err.max()),
+            float((err > atol + rtol * ref.abs()).float().mean()))
+
+
+def agree_cfg(name):
+    """``_ModelCfg`` with ``OPT`` = ``name`` at (a)'s base LR."""
+    return type("_Agree_" + name, (model_cfg(name),),
+                {"LR": OPTAX_LR.get(name, _ModelCfg.LR)})
+
+
+def optax_agree(name, models, start, grads, device):
+    """(a) ``OPTAX_STEPS`` steps of ``name`` on the card (``models``:
+    {device: model, "cpu": model}; ``start``, ``grads``: {device: {name:
+    tensor}}), from the same parameters and gradients on both (step t's
+    scaled by ``OPTAX_GRAD_SCALE[t]``), at the base LR of ``OPTAX_LR``.
+    Returns the card's optimizer and ``check()``, which takes the CPU's
+    steps and holds the card's parameters (their displacements) and every
+    state tensor, copied to the host here, against the CPU's; it may run
+    on another thread meanwhile."""
+    import torch
+
+    from dasac_tpu_torch.train import optax_rules, optim
+
+    def set_grads(dev, t):
+        for k, p in models[dev].named_parameters():
+            p.grad = grads[dev][k] * OPTAX_GRAD_SCALE[t]
+
+    opts = {}
+    for dev, model in models.items():
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(start[dev][k])
+        opts[dev] = optim.build_optimizer(agree_cfg(name), R101, model,
+                                          seed=SEED)
+    card, cpu = opts[device], opts["cpu"]
+    noises = []
+    for t in range(OPTAX_STEPS):
+        set_grads(device, t)
+        noise = None
+        if name == "noisy_sgd":
+            noise = card.sample_noise_draws(
+                torch.Generator(device=device).manual_seed(SEED + t))
+            noises.append([[d.cpu() for d in g] for g in noise])
+        card.step(noise=noise)
+    got = {k: (p.detach().to("cpu", copy=True),
+               {f: v.to("cpu", copy=True) for f, v in card.state[p].items()})
+           for k, p in models[device].named_parameters()}
+
+    def check():
+        for t in range(OPTAX_STEPS):
+            set_grads("cpu", t)
+            cpu.step(noise=noises[t] if noises else None)
+        share_max = (OPTAX_SIGN_SHARE if name in optax_rules.SIGN_RULES
+                     else 0.0)
+        worst = dict(param_err=0.0, param_share=0.0, moved_min=None,
+                     state_err=0.0, state_share=0.0)
+        for k, q in models["cpu"].named_parameters():
+            p, a = got[k]
+            ref = q.detach()
+            moved = float((ref - start["cpu"][k]).abs().max())
+            eps = F32_EPS * max(float(ref.abs().max()),
+                                float(start["cpu"][k].abs().max()))
+            need(moved > 0 and moved >= OPTAX_MOVED * eps,
+                 "optimizers %s: parameter %s "
+                 "moved by %.3g, under %g f32 epsilons of its magnitude"
+                 % (name, k, moved, OPTAX_MOVED))
+            err = (p - ref).abs()
+            bound = (OPTAX_DISP_RTOL * moved
+                     + OPTAX_ULPS * F32_EPS * ref.abs())
+            sh = float((err > bound).float().mean())
+            need(sh <= share_max, "optimizers %s: parameter %s off the "
+                 "CPU's on %.3g of its elements (max %.3g of a %.3g move)"
+                 % (name, k, sh, float(err.max()), moved))
+            worst["param_err"] = max(worst["param_err"],
+                                     float(err.max()) / moved)
+            worst["param_share"] = max(worst["param_share"], sh)
+            worst["moved_min"] = min(worst["moved_min"] or np.inf,
+                                     moved / eps)
+            b = cpu.state[q]
+            need(set(a) == set(b), "optimizers %s: state fields %s vs %s"
+                 % (name, sorted(a), sorted(b)))
+            for field, want in b.items():
+                if field == "step":
+                    need(torch.equal(a[field], want)
+                         and int(want) == OPTAX_STEPS,
+                         "optimizers %s: step %s vs %s"
+                         % (name, a[field], want))
+                    continue
+                scale = float(want.abs().max()) if want.numel() else 0.0
+                e, sh = _beyond(a[field], want, OPTAX_TOL["rtol"],
+                                OPTAX_TOL["atol"] * max(scale, 1e-30))
+                need(sh <= share_max, "optimizers %s: %s of %s off the "
+                     "CPU's on %.3g of its elements (max %.3g of %.3g)"
+                     % (name, field, k, sh, e, scale))
+                worst["state_err"] = max(worst["state_err"],
+                                         e / max(scale, 1e-30))
+                worst["state_share"] = max(worst["state_share"], sh)
+        return worst
+
+    return card, check
+
+
+def optax_opt_ms(opt):
+    """(b) the optimizer step alone (``median_ms``: CUDA events, and the
+    host clock to a synchronize; the gradients it is given stay) and its
+    state in GB."""
+    _, _, times = median_ms(opt.step)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for st in opt.state.values() for k, t in st.items()
+                      if k != "step")
+    return dict(opt_ms=statistics.median(times["device_ms"]),
+                opt_host_ms=statistics.median(times["host_ms"]),
+                state_gb=state_bytes / 1e9)
+
+
+def optax_time(ce, ce_triton, name, model, step, batch, init_sd, device):
+    """(b) ``OPTAX_SAC_STEPS`` flagship SAC steps with the optimizer
+    ``name`` from the weights ``init_sd``.  Returns (train state, figures,
+    CE launches)."""
+    import torch
+
+    from dasac_tpu_torch.core.state import create_train_state
+    from dasac_tpu_torch.train import optim
+
+    model.load_state_dict(init_sd)
+    for p in model.parameters():
+        p.grad = None
+    opt = optim.build_optimizer(model_cfg(name), R101, model, seed=SEED)
+    state = create_train_state(model, opt, C, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    reset_counts(ce, ce_triton)
+    times, peak, rows = run_steps(step, state, batch, gen, OPTAX_SAC_STEPS,
+                                  "optimizers " + name)
+    got, paths, _ = read_counts(ce, ce_triton,
+                                {"nll_fwd": 2 * OPTAX_SAC_STEPS,
+                                 "nll_bwd": 2 * OPTAX_SAC_STEPS})
+    out = dict(step_ms=times, step_ms_median=statistics.median(
+        times[-2:]), peak_gb=peak, losses=rows[-1], ce_launches=got,
+        ce_launches_by_path=paths)
+    return state, out, got
+
+
+def optax_round_trip(name, model, opt, fresh_model, device):
+    """(c) the state of ``model`` and its optimizer ``opt`` (after (a))
+    through ``Checkpointer`` into a fresh state of ``fresh_model`` (its
+    optimizer at (a)'s LRs, which a snapshot does not carry): every
+    optimizer field equal, then one more step on both from the same
+    gradients, bit-equal."""
+    import torch
+
+    from dasac_tpu_torch.core.state import create_train_state
+    from dasac_tpu_torch.train import optim
+    from dasac_tpu_torch.train.checkpoints import Checkpointer
+
+    state = create_train_state(model, opt, C, device=device)
+    t0 = time.perf_counter()
+    path = Checkpointer(OPTAX_BASE).save_latest(state, 0.0, 1)
+    save_s = time.perf_counter() - t0
+    fresh = create_train_state(
+        fresh_model, optim.build_optimizer(agree_cfg(name), R101,
+                                           fresh_model, seed=SEED),
+        C, device=device)
+    t0 = time.perf_counter()
+    Checkpointer(OPTAX_BASE).load(path, fresh)
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    pairs = list(zip(state.model.parameters(), fresh.model.parameters()))
+    for p, q in pairs:
+        need(torch.equal(p, q), "optimizers %s: parameter not restored"
+             % name)
+        a, b = state.optimizer.state[p], fresh.optimizer.state[q]
+        need(set(a) == set(b) and all(torch.equal(a[f], b[f]) for f in a),
+             "optimizers %s: state not restored" % name)
+        q.grad = p.grad.clone()
+    state.optimizer.step()
+    fresh.optimizer.step()
+    for p, q in pairs:
+        need(torch.equal(p, q), "optimizers %s: the step after the round "
+             "trip differs" % name)
+        a, b = state.optimizer.state[p], fresh.optimizer.state[q]
+        need(all(torch.equal(a[f], b[f]) for f in a),
+             "optimizers %s: the state after the round trip differs" % name)
+    return dict(save_s=save_s, load_s=load_s,
+                snapshot_fields=len(state.optimizer.state[pairs[0][0]]))
+
+
+def optax_cli(ce, ce_triton, device, card):
+    """The train CLI with ``MODEL.OPT adafactor``: 2 ABN steps on phase
+    10's synthetic root, then ``--resume auto`` for 2 more; the resumed
+    state is the saved one, adafactor's factored moments included."""
+    import torch
+
+    from dasac_tpu_torch.train.optax_rules import OptaxRule
+
+    root = os.path.join(OPTAX_BASE, "root")
+    write_train_root(root, card)
+    common = ["--snapshot-dir", os.path.join(OPTAX_BASE, "snap"),
+              "--logdir", os.path.join(OPTAX_BASE, "logs"), "--exp", "smoke",
+              "--run", "adafactor"]
+    sets = ["DATASET.ROOT", root, "TPU.CE_IMPL", "pallas",
+            "TPU.MESH_DEVICES", "1", "MODEL.OPT", "adafactor",
+            "MODEL.BASELINE", "True"]
+    stages = {}
+    first, stages["adafactor"] = run_train_stage(
+        ce, ce_triton, "adafactor",
+        ["--cfg", TRAIN_CFG["abn"], *common, "--set", *sets,
+         "TRAIN.NUM_EPOCHS", "0", *TRAIN_SETS], 0, 2, device, card,
+        phase="optimizers_cli")
+    last = os.path.join(first.args.snapshot_dir, "last.pth")
+    del first
+    torch.cuda.empty_cache()
+    saved = torch.load(last, map_location="cpu", weights_only=True)
+    factored = []
+
+    def check_resume(trainer):
+        """Student and every adafactor field as saved."""
+        state = trainer.state
+        opt = state.optimizer
+        need(isinstance(opt, OptaxRule) and opt.name == "adafactor",
+             "resume: the optimizer is %r" % (opt,))
+        for k, v in state.model.state_dict().items():
+            need(torch.equal(v.cpu(), saved["model"][
+                "module.backbone." + k]), "resume: student %s" % k)
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for i, p in enumerate(params):
+            want = saved["opt"]["state"][i]
+            need(set(opt.state[p]) == set(want),
+                 "resume: adafactor fields of parameter %d" % i)
+            for f, t in want.items():
+                need(torch.equal(opt.state[p][f].cpu(), t),
+                     "resume: adafactor %s of parameter %d" % (f, i))
+            factored.append("v_row" in want)
+
+    resumed, stages["adafactor_resume"] = run_train_stage(
+        ce, ce_triton, "adafactor_resume",
+        ["--cfg", TRAIN_CFG["abn"], *common, "--resume", "auto", "--set",
+         *sets, "TRAIN.NUM_EPOCHS", "1", *TRAIN_SETS], 1, 2, device, card,
+        check_resume=check_resume, phase="optimizers_cli")
+    need(any(factored), "adafactor factored no parameter")
+    del resumed, saved
+    torch.cuda.empty_cache()
+    return stages, sum(factored)
+
+
+def run_optimizers(ce, ce_triton, device, card):
+    """Phase 22: for SGD (the baseline, timed only) and each of optax's 26
+    names, (a) ``optax_agree`` (its CPU half on a thread while (c)
+    ``optax_round_trip`` runs), then (b) ``optax_opt_ms`` on (a)'s
+    optimizer and, for the names of ``OPTAX_TIMED`` (None: all),
+    ``optax_time``, alone; then ``optax_cli``.  Returns the CE launches by
+    timed name and CLI stage."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from dasac_tpu_torch.nn.factory import build_model
+    from dasac_tpu_torch.train import optax_rules, optim, steps
+
+    torch.backends.cudnn.benchmark = True
+    shutil.rmtree(OPTAX_BASE, ignore_errors=True)
+    os.makedirs(OPTAX_BASE)
+    try:
+        state = flagship_state(device)
+        model = state.model
+        init_sd = {k: v.detach().clone()
+                   for k, v in model.state_dict().items()}
+        step = steps.make_sac_step(sac_step_config(), device=device)
+        batch = sac_batch(device)
+        # one SAC step's gradients, at the parameters it started from
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        reset_counts(ce, ce_triton)
+        step(state, batch, torch.Generator(device=device).manual_seed(SEED))
+        read_counts(ce, ce_triton, {"nll_fwd": 2, "nll_bwd": 2})
+        # each tensor scaled to RMS 1 (a tensor without gradient stays 0),
+        # so that every rule moves every tensor by far more than f32's
+        # rounding of it, whatever the scale of the loss's gradients
+        grads = {}
+        for k, p in model.named_parameters():
+            g = (p.grad.detach().float() if p.grad is not None
+                 else torch.zeros_like(p))
+            rms = g.pow(2).mean().sqrt()
+            grads[k] = torch.where(rms > 0, g / rms, g)
+        del state
+        cpu_model = build_model(R101, C, device="cpu")
+        fresh_model = build_model(
+            R101, C, dtype=torch.bfloat16, device=device,
+            generator=torch.Generator().manual_seed(SEED + 1))
+        start = {device: start, "cpu": {k: v.cpu()
+                                        for k, v in start.items()}}
+        grads = {device: grads, "cpu": {k: v.cpu()
+                                        for k, v in grads.items()}}
+        rows, launches, part_s = {}, {}, {}
+        with ThreadPoolExecutor(1) as pool:
+            for name in ("SGD",) + optax_rules.NAMES:
+                row, t0 = {}, time.perf_counter()
+                if name == "SGD":
+                    with torch.no_grad():
+                        for k, p in model.named_parameters():
+                            p.grad = grads[device][k].clone()
+                    opt = optim.build_optimizer(model_cfg(name), R101, model)
+                else:
+                    # the CPU's steps and the comparison run beside (c)
+                    opt, check = optax_agree(
+                        name, {device: model, "cpu": cpu_model}, start, grads,
+                        device)
+                    agree = pool.submit(check)
+                    row["round_trip"] = optax_round_trip(name, model, opt,
+                                                         fresh_model, device)
+                    row["agree"] = agree.result()
+                t1 = time.perf_counter()
+                row.update(optax_opt_ms(opt))
+                del opt
+                if OPTAX_TIMED is None or name in OPTAX_TIMED:
+                    state, timed, launches[name] = optax_time(
+                        ce, ce_triton, name, model, step, batch, init_sd,
+                        device)
+                    row.update(timed)
+                    del state
+                torch.cuda.empty_cache()
+                part_s[name] = dict(agree_round_trip=t1 - t0,
+                                    time=time.perf_counter() - t1)
+                row["sgd_opt_ms"] = rows["SGD"]["opt_ms"] if rows else None
+                rows[name] = row
+                log("optimizers %s: %s" % (name, json.dumps(dict(row,
+                                                                 card=card))))
+        del model, fresh_model, cpu_model, init_sd, start, grads
+        torch.cuda.empty_cache()
+        cli, n_factored = optax_cli(ce, ce_triton, device, card)
+    finally:
+        shutil.rmtree(OPTAX_BASE, ignore_errors=True)
+    table = {n: dict(step_ms_median=r.get("step_ms_median"),
+                     opt_ms=r["opt_ms"], opt_host_ms=r["opt_host_ms"],
+                     state_gb=r["state_gb"],
+                     agree_param_err=r.get("agree", {}).get("param_err"),
+                     agree_moved_min=r.get("agree", {}).get("moved_min"))
+             for n, r in rows.items()}
+    log("optimizers: %s" % json.dumps(dict(
+        card=card, names=len(rows) - 1, table=table, part_s=part_s,
+        cli_factored_params=n_factored,
+        cli={st: o["ce_launches"] for st, o in cli.items()})))
+    launches.update({"cli_" + st: o["ce_launches"] for st, o in cli.items()})
+    return launches
+
+
 def main(argv=()):
     import argparse
 
@@ -4339,6 +4753,10 @@ def main(argv=()):
         "--step-tools-only", action="store_true",
         help="instead of the phases, build the CE kernels and run phase 20 "
              "(the step tools) alone")
+    parser.add_argument(
+        "--optimizers-only", action="store_true",
+        help="instead of the phases, build the CE kernels and run phase 22 "
+             "(optax's optimizers by name) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4367,11 +4785,15 @@ def main(argv=()):
         run_infer_mesh(ce, ce_triton, device, card)
         log("infer_mesh: %.1f s" % (time.perf_counter() - t_start))
         return 0
-    if args.remat_only or args.step_tools_only or args.train_mesh_only:
+    if (args.remat_only or args.step_tools_only or args.train_mesh_only
+            or args.optimizers_only):
+        global OPTAX_TIMED
+        OPTAX_TIMED = None  # phase 22 alone times every name's SAC step
         build_cuda(ce)
         for flag, phase in ((args.remat_only, run_remat_opt),
                             (args.step_tools_only, run_step_tools),
-                            (args.train_mesh_only, run_train_mesh)):
+                            (args.train_mesh_only, run_train_mesh),
+                            (args.optimizers_only, run_optimizers)):
             if flag:
                 t0 = time.perf_counter()
                 log("%s launches: %s" % (phase.__name__, json.dumps(
@@ -4447,6 +4869,8 @@ def main(argv=()):
     lap("step_tools")
     tmesh_launches = run_train_mesh(ce, ce_triton, device, card)
     lap("train_mesh")
+    optax_launches = run_optimizers(ce, ce_triton, device, card)
+    lap("optimizers")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -4523,6 +4947,12 @@ def main(argv=()):
                                      for key, paths in cases.items()}
                               for rank, cases in
                               tmesh_launches["gloo_by_path"].items()})
+            # optax's optimizers by name (phase 22): the flagship SAC
+            # steps of each timed name (OPTAX_TIMED), and the adafactor
+            # CLI stages
+            row["launches_optimizers"] = {
+                part: (got[k] if cuda else 0)
+                for part, got in optax_launches.items()}
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

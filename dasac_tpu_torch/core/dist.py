@@ -30,6 +30,8 @@ from typing import NamedTuple
 import torch
 import torch.distributed as tdist
 
+from dasac_tpu_torch.core.state import COUNT, optimizer_fields
+
 DEFAULT_PORT = "12355"
 # a rank that never reaches a collective ends the others' wait with an
 # error after this long (rank 0 alone builds kernels, writes snapshots and
@@ -206,59 +208,76 @@ def broadcast_values(values, device, src=0, group=None):
     return t.tolist()
 
 
-# an optimizer's per-parameter tensors: SGD's momentum, Adam's moments
-_OPT_TENSORS = ("momentum_buffer", "exp_avg", "exp_avg_sq")
-
-
 def _optimizer_state(optimizer, device, src, group):
-    """The optimizer's per-parameter tensors (``_OPT_TENSORS``), made to
-    exist on every rank exactly where they exist on rank ``src`` (a rank
-    that loaded no snapshot has none); Adam's step counts are set to rank
-    ``src``'s here."""
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    has = torch.tensor([[optimizer.state.get(p, {}).get(k) is not None
-                         for k in _OPT_TENSORS] for p in params],
-                       dtype=torch.uint8, device=device)
+    """The optimizer's per-parameter state, made to exist on every rank
+    exactly where it exists on rank ``src`` (a rank that loaded no
+    snapshot has none; its fields are made like rank ``src``'s, which the
+    caller then broadcasts).  Returns ``(tensors, counts)``: every state
+    tensor but the step counts, parameter by parameter, and one float64
+    tensor on ``device`` of every parameter's step count (0 where it keeps
+    none), which :func:`_set_counts` writes back."""
+    params = [(p, g) for g in optimizer.param_groups for p in g["params"]]
+    fields = [optimizer_fields(optimizer, p, g) for p, g in params]
+    has = torch.tensor(
+        [all(optimizer.state.get(p, {}).get(k) is not None for k in f)
+         for (p, _), f in zip(params, fields)],
+        dtype=torch.uint8, device=device)
     broadcast_([has], src, group)
-    steps = broadcast_values(
-        [float(optimizer.state.get(p, {}).get("step", 0)) for p in params],
-        device, src, group)
-    out = []
-    for p, row, step in zip(params, has.tolist(), steps):
+    out, counts = [], []
+    for (p, _), f, h in zip(params, fields, has.tolist()):
         st = optimizer.state[p]
-        for k, h in zip(_OPT_TENSORS, row):
-            if h:
-                if st.get(k) is None:
-                    st[k] = torch.zeros_like(p)
-                out.append(st[k])
-            else:
+        if not h:
+            for k in f:
                 st.pop(k, None)
-        if row[1]:
-            st["step"] = torch.tensor(step, dtype=torch.float32)
-    return out
+            counts.append(0.0)
+            continue
+        for k, like in f.items():
+            if st.get(k) is None:
+                st[k] = torch.zeros(like.shape, dtype=like.dtype,
+                                    device=p.device if like.is_meta
+                                    else like.device)
+            if k != COUNT:
+                out.append(st[k])
+        counts.append(float(st[COUNT]) if COUNT in f else 0.0)
+    return out, torch.tensor(counts, dtype=torch.float64, device=device)
+
+
+def _set_counts(optimizer, counts):
+    """Write ``counts`` (of :func:`_optimizer_state`) into the step count
+    of every parameter that keeps one, in its own dtype."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for p, n in zip(params, counts.tolist()):
+        st = optimizer.state.get(p)
+        if st and st.get(COUNT) is not None:
+            st[COUNT] = torch.tensor(n, dtype=st[COUNT].dtype)
 
 
 def state_tensors(state, device, src=0, group=None):
     """Every tensor of a train state that must be equal on all ranks:
     parameters, buffers, teacher, ``running_conf`` and the optimizer's
-    state."""
+    per-parameter state, its step counts (one float64 tensor, last)
+    included."""
     tensors = ([p.data for p in state.model.parameters()]
                + list(state.model.buffers())
                + list(state.teacher_params.values())
                + list(state.teacher_stats.values()) + [state.running_conf])
     if state.optimizer is not None:
-        tensors += _optimizer_state(state.optimizer, device, src, group)
+        opt, counts = _optimizer_state(state.optimizer, device, src, group)
+        tensors += opt + [counts]
     return tensors
 
 
 def broadcast_state(state, device, src=0, group=None):
     """Make every rank's train state rank ``src``'s, bit for bit (after a
-    resume that only rank ``src`` read), ``step`` and ``slow_init``
-    included."""
+    resume that only rank ``src`` read), the optimizer's every field and
+    step count, ``step`` and ``slow_init`` included."""
     if group is None:
         return
     with torch.no_grad():
-        broadcast_(state_tensors(state, device, src, group), src, group)
+        tensors = state_tensors(state, device, src, group)
+        broadcast_(tensors, src, group)
+        if state.optimizer is not None:
+            _set_counts(state.optimizer, tensors[-1])
     state.slow_init, state.step = (int(v) for v in broadcast_values(
         (state.slow_init, state.step), device, src, group))
 

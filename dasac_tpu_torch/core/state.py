@@ -2,7 +2,9 @@
 ``dasac_tpu/core/state.py``).
 
   * model              — the student ``nn.Module`` (params + BN buffers)
-  * optimizer          — its SGD over the 4 LR groups (None for inference)
+  * optimizer          — its optimizer over the 4 LR groups (``MODEL.OPT``;
+    None for inference); :func:`optimizer_fields` gives its per-parameter
+    state
   * teacher_params / teacher_stats — the EMA teacher's tensors, keyed like
     the student's parameters / float buffers
   * running_conf [C]   — moving class prior (a tensor on the device)
@@ -60,3 +62,25 @@ def create_train_state(model, optimizer, num_classes, device=None):
         state.teacher_stats = {k: v.detach().clone()
                                for k, v in state.student_stats().items()}
     return state
+
+
+# the field of an optimizer's per-parameter state that counts its steps
+# (torch Adam's float32, an optax rule's int32), a host scalar
+COUNT = "step"
+
+
+def optimizer_fields(optimizer, p, group):
+    """The per-parameter state fields of ``optimizer``'s kind for ``p`` in
+    ``group``, each a tensor of its shape and dtype, on the meta device
+    where it lives on the parameter's (``COUNT`` on the host): an optax
+    rule's (``init_state``), torch Adam's or torch SGD's."""
+    p = p.detach().to("meta")
+    init = getattr(optimizer, "init_state", None)
+    if init is not None:
+        return init(p, group)
+    if isinstance(optimizer, torch.optim.Adam):
+        return {"exp_avg": p, "exp_avg_sq": p,
+                COUNT: torch.zeros((), dtype=torch.float32)}
+    if isinstance(optimizer, torch.optim.SGD):
+        return {"momentum_buffer": p}
+    raise ValueError("no state layout for %s" % type(optimizer).__name__)

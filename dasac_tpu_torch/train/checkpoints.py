@@ -11,9 +11,11 @@ as ``dasac_tpu/tools/export_torch.py`` writes them:
     has been initialized (``slow_init``); an ABN snapshot has none;
   * ``module.running_conf`` [C] and ``module.slow_init`` (float, [1]).
 
-``opt`` is the optimizer's ``state_dict()`` (SGD's or Adam's,
-``MODEL.OPT``): parameter ids are positional over the four LR groups in
-the reference's order (``train/optim.py``).  The content
+``opt`` is the optimizer's ``state_dict()`` (``MODEL.OPT``: torch's SGD
+or Adam, or one of optax's rules, ``train/optax_rules.py``): parameter ids
+are positional over the four LR groups in the reference's order
+(``train/optim.py``), and each group carries ``opt``, the ``MODEL.OPT``
+name.  The content
 is tensors, dicts, lists, strings and numbers, so
 ``torch.load(weights_only=True)`` reads it, and ``dasac_tpu``'s own
 ``Checkpointer.load`` takes it (a ``.pth`` goes to its torch reader).
@@ -29,6 +31,9 @@ machines do not have); convert them with
 import os
 
 import torch
+
+from dasac_tpu_torch.core.state import COUNT, optimizer_fields
+from dasac_tpu_torch.train.optax_rules import OptaxRule
 
 BACKBONE = "module.backbone."
 TEACHER = "module.slow_net."
@@ -112,11 +117,11 @@ class Checkpointer:
         as they are and ``slow_init`` becomes 0, so the first SAC step
         copies the student (reference sac.py:74-81).  Only the optimizer's
         per-parameter state is taken from ``opt`` (SGD's momentum, Adam's
-        moments and step): the learning rates and weight decay stay the
-        optimizer's own (an ABN snapshot's would otherwise replace the SAC
-        stage's); a state without an optimizer (inference) reads no
-        ``opt``.  A file that is a bare ``state_dict`` loads as the
-        student."""
+        moments and step, an optax rule's every field): the learning rates
+        and weight decay stay the optimizer's own (an ABN snapshot's would
+        otherwise replace the SAC stage's); a state without an optimizer
+        (inference) reads no ``opt``.  A file that is a bare ``state_dict``
+        loads as the student."""
         data = torch.load(path, map_location="cpu", weights_only=True)
         model_sd = data.get("model", data)
         student, teacher, extras = {}, {}, {}
@@ -147,53 +152,73 @@ class Checkpointer:
             data.get("score", -1e16))
 
 
-# the per-parameter state each optimizer kind keeps, by the key its
-# ``state_dict()``'s param groups carry and no other kind's does
-_OPT_KINDS = (("momentum", torch.optim.SGD, ("momentum_buffer",)),
-              ("betas", torch.optim.Adam, ("exp_avg", "exp_avg_sq", "step")))
+# torch's optimizers by MODEL.OPT name
+_TORCH = {"sgd": torch.optim.SGD, "adam": torch.optim.Adam}
+# a snapshot whose groups carry no ``opt`` name (the reference's SGD, the
+# port's before optax's rules): its kind by the key its groups carry
+_UNNAMED = (("momentum", "sgd"), ("betas", "adam"))
 
 
-def _kind(groups):
-    for key, cls, fields in _OPT_KINDS:
+def _saved_kind(groups):
+    names = {g.get("opt") for g in groups}
+    if names != {None}:
+        if len(names) != 1:
+            raise ValueError("snapshot param groups of several optimizers: "
+                             "%s" % sorted(map(str, names)))
+        return names.pop()
+    for key, kind in _UNNAMED:
         if all(key in g for g in groups):
-            return cls, fields
+            return kind
     raise ValueError("snapshot optimizer of unknown kind (param-group keys "
                      "%s)" % sorted(groups[0]))
 
 
+def _kind(optimizer):
+    if isinstance(optimizer, OptaxRule):
+        return optimizer.name
+    for kind, cls in _TORCH.items():
+        if type(optimizer) is cls:
+            return kind
+    raise ValueError("no snapshot format for %s" % type(optimizer).__name__)
+
+
 def _load_optimizer_state(optimizer, opt_dict):
-    """Copy the per-parameter state that ``opt_dict`` (an SGD or Adam
-    ``state_dict()``) holds into ``optimizer``, matching parameters by
-    position within the param groups: SGD's ``momentum_buffer``, Adam's
-    ``exp_avg``, ``exp_avg_sq`` and ``step``.  Raises where the optimizer
-    kinds, the group sizes or a tensor's shape disagree."""
+    """Copy the per-parameter state that ``opt_dict`` (a ``state_dict()``)
+    holds into ``optimizer``, matching parameters by position within the
+    param groups: SGD's ``momentum_buffer``; Adam's ``exp_avg``,
+    ``exp_avg_sq`` and ``step``; an optax rule's every field, its ``step``
+    included.  Raises where the optimizer kinds (``MODEL.OPT``), the group
+    sizes, a rule's fields or a tensor's shape disagree."""
     groups = opt_dict.get("param_groups", [])
     st = opt_dict.get("state", {})
     if len(groups) != len(optimizer.param_groups):
         raise ValueError("snapshot has %d param groups, the optimizer %d"
                          % (len(groups), len(optimizer.param_groups)))
-    cls, fields = _kind(groups)
-    if type(optimizer) is not cls:
+    saved, mine = _saved_kind(groups), _kind(optimizer)
+    if saved != mine:
         raise ValueError("snapshot holds %s state, the trainer's optimizer "
-                         "is %s (MODEL.OPT)" % (cls.__name__,
-                                                type(optimizer).__name__))
-    for saved, group in zip(groups, optimizer.param_groups):
-        if len(saved["params"]) != len(group["params"]):
+                         "is %s (MODEL.OPT)" % (saved, mine))
+    for sg, group in zip(groups, optimizer.param_groups):
+        if len(sg["params"]) != len(group["params"]):
             raise ValueError("param-group size mismatch: %d saved vs %d"
-                             % (len(saved["params"]), len(group["params"])))
-        for pid, p in zip(saved["params"], group["params"]):
+                             % (len(sg["params"]), len(group["params"])))
+        for pid, p in zip(sg["params"], group["params"]):
             entry = st.get(pid, {})
-            if entry.get(fields[0]) is None:
-                continue
-            for f in fields:
+            if all(v is None for v in entry.values()):
+                continue  # no state yet (SGD without momentum keeps None)
+            want = optimizer_fields(optimizer, p, group)
+            if set(entry) != set(want):
+                raise ValueError("%s state fields %s, want %s" % (
+                    mine, sorted(entry), sorted(want)))
+            for f, like in want.items():
                 t = entry[f]
-                if f == "step":  # a scalar count, kept on the host
+                if f == COUNT:  # a scalar count, kept on the host
                     optimizer.state[p][f] = t.detach().clone()
                     continue
-                if tuple(t.shape) != tuple(p.shape):
+                if tuple(t.shape) != tuple(like.shape):
                     raise ValueError("%s shape mismatch: %s vs %s"
-                                     % (f, tuple(t.shape), tuple(p.shape)))
-                optimizer.state[p][f] = t.to(p.device, p.dtype, copy=True)
+                                     % (f, tuple(t.shape), tuple(like.shape)))
+                optimizer.state[p][f] = t.to(p.device, like.dtype, copy=True)
 
 
 class BestTracker:

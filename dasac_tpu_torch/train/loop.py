@@ -135,7 +135,7 @@ class Trainer:
             num_classes=self.nclass)
         state = create_train_state(
             self.model, optim_lib.build_optimizer(cfg.MODEL, self.arch,
-                                                  self.model),
+                                                  self.model, self.seed),
             self.nclass, device=self.device)
 
         # ImageNet init (MODEL.INIT_MODEL, models/__init__.py:22-25); the

@@ -74,7 +74,7 @@ def test_port_imports_no_jax_and_nothing_of_dasac_tpu():
                  "tools/recipe.py", "core/mesh.py", "nn/spatial.py",
                  "tools/flagship.py", "tools/profile_step.py",
                  "tools/compare_refine_res.py", "tools/conv_roofline.py",
-                 "tools/op_traffic.py"):
+                 "tools/op_traffic.py", "train/optax_rules.py"):
         assert REPO / "dasac_tpu_torch" / name in files
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & BANNED)
            for p in files}

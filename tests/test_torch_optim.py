@@ -14,10 +14,14 @@ and their checkpoint state against dasac_tpu on the CPU, f32.
     stays under 5e-7;
   * a ``.pth`` round trip (``Checkpointer``) resumes Adam's moments and step
     count, and the next step equals an uninterrupted run's, bit for bit; a
-    snapshot of the other optimizer kind raises;
+    snapshot of another optimizer kind raises, optax's rules (whose groups
+    may carry SGD's ``momentum`` key or none) included, by the ``MODEL.OPT``
+    name its groups carry; a snapshot whose groups carry no name (the
+    reference's SGD, the port's Adam before the name) loads as before;
   * the train CLI takes ``MODEL.OPT adam`` with ``TPU.REMAT convs`` and
-    ``--resume auto`` continues the moments;
-  * any other optimizer name raises, naming ROADMAP item 15.
+    ``--resume auto`` continues the moments.
+
+optax's other optimizers by name: ``tests/test_torch_optax.py``.
 """
 
 import jax
@@ -151,7 +155,9 @@ def test_adam_pth_round_trip_continues_the_moments(tmp_path):
         assert torch.equal(a, b), k
 
 
-@pytest.mark.parametrize("saved,loading", [("adam", "SGD"), ("SGD", "adam")])
+@pytest.mark.parametrize("saved,loading", [
+    ("adam", "SGD"), ("SGD", "adam"), ("lars", "SGD"), ("sm3", "rmsprop"),
+    ("rmsprop", "SGD"), ("adamw", "adam"), ("SGD", "lion")])
 def test_a_snapshot_of_the_other_optimizer_kind_raises(tmp_path, saved,
                                                        loading):
     state = _port_state(_mcfg(saved))
@@ -164,10 +170,24 @@ def test_a_snapshot_of_the_other_optimizer_kind_raises(tmp_path, saved,
                                                _port_state(_mcfg(loading)))
 
 
-@pytest.mark.parametrize("name", ["rmsprop", "adagrad", "adamw"])
-def test_other_optimizer_names_raise_naming_item_15(name):
-    with pytest.raises(ValueError, match="item 15"):
-        _port_state(_mcfg(name))
+@pytest.mark.parametrize("opt,field", [("SGD", "momentum_buffer"),
+                                       ("adam", "exp_avg")])
+def test_a_snapshot_without_the_name_loads_by_its_group_keys(tmp_path, opt,
+                                                             field):
+    state = _port_state(_mcfg(opt))
+    for p in state.model.parameters():
+        p.grad = torch.ones_like(p)
+    state.optimizer.step()
+    path = tckpt.Checkpointer(str(tmp_path)).save_latest(state, 0.0, 0)
+    snap = torch.load(path, weights_only=True)
+    for g in snap["opt"]["param_groups"]:
+        del g["opt"]
+    torch.save(snap, path)
+    fresh = _port_state(_mcfg(opt), seed=1)
+    tckpt.Checkpointer(str(tmp_path)).load(path, fresh)
+    for p, q in zip(state.model.parameters(), fresh.model.parameters()):
+        assert torch.equal(state.optimizer.state[p][field],
+                           fresh.optimizer.state[q][field])
 
 
 def test_cli_trains_adam_under_remat_and_resumes_its_moments(root,  # noqa
