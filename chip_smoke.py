@@ -99,7 +99,9 @@ no result line:
               ``tools.compute_is_weights``; ms per frame by part;
  14. bench_infer  ``tools.bench_infer`` (on-device argmax, 1024x2048):
               r101 and both VGG archs at batch 1 and 4, and r101 with 3
-              scales + flip fused at stride 8, one JSON line each;
+              scales + flip fused at stride 8, one JSON line each, with
+              its FLOPs and bytes a step, ``mfu`` and ``hbm_util`` in (0,
+              1.05];
  15. dataset  the dataset program from raw files, under
               ``build/smoke_dataset`` (removed after):
               ``make_domain_gap_root``'s scenes rewritten as a GTA5
@@ -215,11 +217,12 @@ no result line:
               L2 1e-3, parameters and moments within rtol 1e-3 of a CPU
               Adam fed the card's gradients);
  20. step_tools  each step tool's ``main`` at its flagship defaults
-              (``tools/flagship.py``): ``profile_step`` (six stages) under
-              each remat mode, ``conv_roofline`` (every shape's TF/s and
-              share of the card's dense bf16 peak, the conv-bound floor),
+              (``tools/flagship.py``): ``profile_step`` (six stages, 2
+              timed calls each) under each remat mode, ``conv_roofline``
+              (every shape's TF/s and share of the card's dense bf16
+              peak, the conv-bound floor),
               ``op_traffic`` (top 15 ops, totals) under none and convs,
-              ``compare_refine_res`` cut to 20 + 20 + 20 steps
+              ``compare_refine_res`` cut to 6 + 6 + 6 steps
               (``src_loss_ce`` equal in the arms at their first step);
               cuDNN autotuning off before each, which the tool turns on;
               CE launches per tool exact and bulk;
@@ -265,7 +268,21 @@ no result line:
               adafactor`` for 2 ABN steps on phase 10's synthetic root and
               ``--resume auto`` for 2 more: the resumed state equals the
               saved one (files under ``build/smoke_optax``, removed
-              after);
+              after; the root moves to ``build/smoke_bench`` for phase
+              23);
+ 23. bench    the port's bench (``dasac_tpu_torch/tools/bench.py``, the
+              counterpart of ``bench.py``), ``main`` in this process at the
+              flagship (r101 bf16, 8 + 2 x 4 views at 512x1024): ``--mode
+              step`` with ``--ce-impl pallas`` and with ``xla`` (3 warm-up,
+              6 timed and 1 counted steps each), ``--mode e2e`` (3 timed
+              steps fed by the PNG loaders) on phase 22's root, ``--mode
+              infer`` (one 1024x2048 frame, 5 calls): one JSON line each
+              with ``bench.py``'s keys and the card's; ``mfu`` and
+              ``hbm_util`` in (0, 1.05]; 2 + 2 CE launches a step with
+              pallas, all bulk, none with xla; the step's conv FLOPs within
+              1% of a count by forward hooks (``hook_conv_flops``), the
+              resize's products under 1% of them; and phase 14's r101
+              batch-1 ``bench_infer`` record (``mfu``, ``hbm_util``);
 Each phase prints one JSON line with the card's name and power limit.
 Phases 10, 13, 14, 15, 17 and 18 call each entry point with cuDNN autotuning
 off, as a new process starts, and check that the entry point turned it on.
@@ -280,13 +297,14 @@ train stage (``launches_recipe``), phase 18's (``launches_infer_mesh``:
 inference launches no CE kernel, so 0), phase 19's by part
 (``launches_remat_opt``), phase 20's by tool (``launches_step_tools``) and
 phase 21's (``launches_train_mesh``: the NCCL world's steps, each gloo
-rank's cases, by path) and phase 22's by timed name and CLI stage
-(``launches_optimizers``).
+rank's cases, by path), phase 22's by timed name and CLI stage
+(``launches_optimizers``) and phase 23's by run (``launches_bench``).
 
 ``python3 chip_smoke.py --infer-mesh-only`` runs phase 18 alone;
 ``--remat-only``, ``--step-tools-only``, ``--train-mesh-only`` and
-``--optimizers-only`` build the CE kernels and run phase 19, 20, 21 or 22
-alone (several flags: those phases).
+``--optimizers-only`` and ``--bench-only`` build the CE kernels and run
+phase 19, 20, 21, 22 or 23 alone (several flags: those phases; phase 23
+alone writes the bench's own corpus under ``build/smoke_bench``).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -323,8 +341,6 @@ ABN_CROP = (640, 640)
 # of any path, 16x640x640
 VGG_ABN_ROWS = (16, *ABN_CROP)
 INFER_HW = (1024, 2048)  # one Cityscapes val frame
-# published device-memory rate of the card, by product (NVIDIA data sheets)
-MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H100", 3.35e12))
 F32_PEAK = 67e12     # H100 SXM, float32 outside the tensor cores
 
 
@@ -349,10 +365,14 @@ def fresh_cudnn():
 
 
 def mem_rate(name):
-    for key, rate in MEM_RATE:
-        if key in name:
-            return rate
-    raise RuntimeError("no memory rate known for %r" % name)
+    """The card's published device-memory rate, bytes/s (``tools/bench.py``'s
+    table: NVIDIA data sheets)."""
+    from dasac_tpu_torch.tools.bench import hbm_peak_bw
+
+    rate = hbm_peak_bw(name)
+    if rate is None:
+        raise RuntimeError("no memory rate known for %r" % name)
+    return rate
 
 
 def abn_step_config():
@@ -2127,7 +2147,9 @@ BENCH_RUNS = ([["--arch", a, "--batch", b] for a in ("deeplabv2_resnet101",
 def run_bench_infer(device):
     """``tools.bench_infer`` at 1024x2048 (its default), the on-device
     argmax (what ``run_inference`` runs): r101 and both VGG archs at batch
-    1 and 4, and r101 with 3 scales + flip fused at stride 8."""
+    1 and 4, and r101 with 3 scales + flip fused at stride 8; each with its
+    FLOPs and bytes, ``mfu`` and ``hbm_util`` in (0, 1.05].  Returns the
+    records."""
     import torch
 
     from dasac_tpu_torch.tools import bench_infer
@@ -2139,6 +2161,10 @@ def run_bench_infer(device):
         need(rec["value"] > 0 and rec["cudnn_benchmark"]
              and rec["device"] == torch.cuda.get_device_name(0),
              "bench_infer %s" % flags)
+        need(rec["step_flops_tf"] > 0 and rec["hbm_gb_per_step"] > 0
+             and 0 < rec["mfu"] <= 1.05 and 0 < rec["hbm_util"] <= 1.05,
+             "bench_infer %s: mfu %s, hbm_util %s" % (
+                 flags, rec.get("mfu"), rec.get("hbm_util")))
         out.append(rec)
         torch.cuda.empty_cache()
     return out
@@ -3881,8 +3907,11 @@ def run_remat_opt(ce, ce_triton, device, card, vgg_none=None):
 # ---------------------------------------------------------------------------
 
 # --warmup, --steps, --every of compare_refine_res in the smoke (the tool's
-# own defaults, 300 each, take ~6 min)
-CRR_ARGS = ["--warmup", "20", "--steps", "20", "--every", "10"]
+# own defaults, 300 each, take ~6 min; cut for the smoke's time limit)
+CRR_ARGS = ["--warmup", "6", "--steps", "6", "--every", "3"]
+# profile_step's timed calls a stage in the smoke (its default is 5; cut
+# for the smoke's time limit)
+PROFILE_ITERS = 2
 
 
 def run_step_tools(ce, ce_triton, device, card):
@@ -3890,7 +3919,8 @@ def run_step_tools(ce, ce_triton, device, card):
     (``tools/flagship.py``: r101 bf16, 8 + 2 x 4 frames at 512x1024), with
     cuDNN autotuning off before (the tool turns it on) and the launch
     counts set to 0 before and read after each: ``profile_step`` under
-    each remat mode (4 + 4 a warm-up or timed call of src_grad, tgt_grad
+    each remat mode, ``PROFILE_ITERS`` timed calls a stage (4 + 4 a
+    warm-up or timed call of src_grad, tgt_grad
     and full together), ``conv_roofline`` (no CE), ``op_traffic`` under
     none and convs (2 + 2 in each of its 2 steps) and
     ``compare_refine_res`` cut to ``CRR_ARGS`` (2 + 2 in each of its
@@ -3916,10 +3946,11 @@ def run_step_tools(ce, ce_triton, device, card):
         torch.cuda.empty_cache()
         return out
 
-    iters = profile_step.parse_args([]).iters
+    iters = PROFILE_ITERS
     for mode in REMAT_MODES:
         res = run("profile_step_" + mode, lambda: profile_step.main(
-            ["--remat", mode], device=device), 4 * (iters + 1))
+            ["--remat", mode, "--iters", str(iters)], device=device),
+            4 * (iters + 1))
         need(set(res) == set(profile_step.STAGES)
              and all(math.isfinite(v) and v > 0 for v in res.values()),
              "profile_step %s: %s" % (mode, res))
@@ -4624,13 +4655,14 @@ def optax_cli(ce, ce_triton, device, card):
     return stages, sum(factored)
 
 
-def run_optimizers(ce, ce_triton, device, card):
+def run_optimizers(ce, ce_triton, device, card, keep_root=None):
     """Phase 22: for SGD (the baseline, timed only) and each of optax's 26
     names, (a) ``optax_agree`` (its CPU half on a thread while (c)
     ``optax_round_trip`` runs), then (b) ``optax_opt_ms`` on (a)'s
     optimizer and, for the names of ``OPTAX_TIMED`` (None: all),
-    ``optax_time``, alone; then ``optax_cli``.  Returns the CE launches by
-    timed name and CLI stage."""
+    ``optax_time``, alone; then ``optax_cli``.  ``keep_root``: where its
+    synthetic root (phase 10's sizes) moves afterwards, for phase 23.
+    Returns the CE launches by timed name and CLI stage."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4709,6 +4741,10 @@ def run_optimizers(ce, ce_triton, device, card):
         del model, fresh_model, cpu_model, init_sd, start, grads
         torch.cuda.empty_cache()
         cli, n_factored = optax_cli(ce, ce_triton, device, card)
+        if keep_root is not None:
+            shutil.rmtree(keep_root, ignore_errors=True)
+            os.makedirs(os.path.dirname(keep_root), exist_ok=True)
+            os.replace(os.path.join(OPTAX_BASE, "root"), keep_root)
     finally:
         shutil.rmtree(OPTAX_BASE, ignore_errors=True)
     table = {n: dict(step_ms_median=r.get("step_ms_median"),
@@ -4722,6 +4758,178 @@ def run_optimizers(ce, ce_triton, device, card):
         cli_factored_params=n_factored,
         cli={st: o["ce_launches"] for st, o in cli.items()})))
     launches.update({"cli_" + st: o["ce_launches"] for st, o in cli.items()})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the port's bench (tools/bench.py)
+# ---------------------------------------------------------------------------
+
+BENCH_BASE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_bench")
+BENCH_ROOT = os.path.join(BENCH_BASE, "root")   # phase 22's root, kept
+BENCH_MODES = {
+    "step_pallas": ["--mode", "step", "--ce-impl", "pallas", "--iters", "6"],
+    "step_xla": ["--mode", "step", "--ce-impl", "xla", "--iters", "6"],
+    "e2e": ["--mode", "e2e", "--iters", "3"],
+    "infer": ["--mode", "infer", "--iters", "5"]}
+# bench.py's JSON keys by mode, and the port's own: the card, the CE route,
+# its launches over the timed steps, the FLOPs by op
+_BENCH_COMMON = {"metric", "unit", "remat", "vs_baseline_note", "value",
+                 "vs_baseline", "card", "ce_impl"}
+BENCH_KEYS = {
+    "step": _BENCH_COMMON | {"step_ms", "step_flops_tf", "mfu", "step_hbm_gb",
+                             "hbm_util", "ce_launches",
+                             "step_flops_tf_by_op"},
+    "e2e": _BENCH_COMMON | {
+        "h2d_mb_s", "end_to_end_images_per_sec", "end_to_end_step_ms",
+        "input_images_per_sec_decode", "input_images_per_sec_packed",
+        "host_cpus", "host_load1_pre_input", "host_load1_post_input",
+        "end_to_end_ce_launches"},
+    "infer": {"metric", "value", "unit", "ms_per_frame", "vs_baseline",
+              "card"}}
+
+
+def hook_conv_flops(args):
+    """An independent count of the convolution FLOPs of one SAC step at
+    ``args``' sizes: a forward of one frame through ``args.arch`` on the
+    meta device (no card time), each conv's 2 Ho Wo Cin Cout kh kw from a
+    forward hook, then a student conv 3x over the source frames and the
+    views (forward, weight and input gradients; 2x where its input needs
+    no gradient: the stem's) and a teacher conv 1x over the views."""
+    import torch
+
+    from dasac_tpu_torch.nn.factory import build_model
+    from dasac_tpu_torch.nn.layers import Conv2d
+
+    model = build_model(args.arch, C, dtype=torch.bfloat16,
+                        device="cpu").to("meta")
+    per_frame = []
+
+    def hook(mod, inputs, out):
+        _, cout, ho, wo = out.shape
+        per_frame.append((2 * ho * wo * mod.weight.shape[1] * cout
+                          * mod.kernel ** 2, inputs[0].requires_grad))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, Conv2d)]
+    model(torch.zeros(1, *args.hw, 3, device="meta"))
+    for h in hooks:
+        h.remove()
+    views = args.groups * args.group_size
+    return sum(f * ((args.batch + views) * (2 + grad_in) + views)
+               for f, grad_in in per_frame)
+
+
+def run_bench(ce, ce_triton, device, card, root=None, bench_infer_rec=None):
+    """Phase 23: ``tools.bench.main`` in this process at the flagship
+    (``BENCH_MODES``), each with cuDNN autotuning off before (the bench
+    turns it on) and the launch counts set to 0 before and read after:
+    ``--mode step`` with each CE route (pallas: 2 + 2 a step over its 3
+    warm-up, 6 timed and 1 counted steps, all bulk; xla: none), ``--mode
+    e2e`` on ``root`` (phase 22's real-size root when it holds the two
+    training splits, else the bench's corpus under ``BENCH_BASE``), ``--mode
+    infer``; each prints one JSON line with ``bench.py``'s keys and the
+    port's.  ``mfu`` and ``hbm_util`` in (0, 1.05]; the step's conv FLOPs
+    within 1% of ``hook_conv_flops`` (the resize's products a share under
+    1%), beside ``conv_roofline``'s table of 37.6 TFLOP.  Then
+    ``bench_infer``'s r101 batch-1 record (phase 14's, else run here).
+    Returns the CE launches by run."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from dasac_tpu_torch.tools import bench, bench_infer, conv_roofline
+
+    have = root is not None and all(
+        os.path.isfile(os.path.join(root, split + ".txt"))
+        for split in (bench.SRC_SPLIT, bench.TGT_SPLIT))
+    launches, recs, run_s = {}, {}, {}
+    try:
+        if not have:
+            root = bench.corpus(os.path.join(BENCH_BASE, "corpus"))
+        for name, argv in BENCH_MODES.items():
+            mode = argv[1]
+            fresh_cudnn()
+            reset_counts(ce, ce_triton)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rec = bench.main(argv, device=device, root=root)
+            torch.cuda.synchronize()
+            run_s[name] = time.perf_counter() - t0
+            printed = buf.getvalue()
+            sys.stdout.write(printed)
+            lines = [ln for ln in printed.splitlines() if ln.startswith("{")]
+            need(len(lines) == 1 and json.loads(lines[0]) == json.loads(
+                json.dumps(rec)), "bench %s: one JSON line, got %d"
+                 % (name, len(lines)))
+            need(set(rec) == BENCH_KEYS[mode],
+                 "bench %s keys: %s" % (name, sorted(set(rec) ^ BENCH_KEYS[
+                     mode])))
+            need(rec["value"] > 0 and (torch.backends.cudnn.benchmark
+                                       or device.type != "cuda"),
+                 "bench %s: value %s, cuDNN autotuning %s" % (
+                     name, rec["value"], torch.backends.cudnn.benchmark))
+            pallas = "pallas" in argv
+            iters = int(argv[argv.index("--iters") + 1])
+            per = 2 * (3 + iters + 1) if pallas else 0
+            launches[name] = read_counts(ce, ce_triton, {
+                "nll_fwd": per, "nll_bwd": per})[0]
+            if mode == "step":
+                need(rec["ce_launches"] == {
+                    k: {"bulk": 2 * iters if pallas else 0, "strided": 0}
+                    for k in ("nll_fwd", "nll_bwd")},
+                     "bench %s: timed launches %s" % (name,
+                                                      rec["ce_launches"]))
+                for key in ("mfu", "hbm_util"):
+                    need(0 < rec[key] <= 1.05, "bench %s: %s = %s" % (
+                        name, key, rec[key]))
+            recs[name] = rec
+            torch.cuda.empty_cache()
+        want = hook_conv_flops(bench.parse_args(BENCH_MODES["step_pallas"]))
+        by_op = {k: v * 1e12 for k, v in recs["step_pallas"][
+            "step_flops_tf_by_op"].items()}
+        need(abs(by_op["conv"] - want) <= 0.01 * want
+             and 0 < by_op["matmul"] < 0.01 * by_op["conv"],
+             "bench step FLOPs by op %s against %.4g by hooks"
+             % (by_op, want))
+        table = sum(3 * 2 * 16 * h * w * k * k * ci * co * mult * 9 / 8
+                    for _, (h, w), ci, co, k, _, mult
+                    in conv_roofline.flagship_convs())
+        if bench_infer_rec is None:
+            fresh_cudnn()
+            bench_infer_rec = bench_infer.main(
+                ["--batch", "1", "--output", "argmax"], device=device)
+            torch.cuda.empty_cache()
+        need(0 < bench_infer_rec["mfu"] <= 1.05
+             and 0 < bench_infer_rec["hbm_util"] <= 1.05,
+             "bench_infer r101 batch 1: mfu %s, hbm_util %s" % (
+                 bench_infer_rec.get("mfu"), bench_infer_rec.get("hbm_util")))
+    finally:
+        shutil.rmtree(BENCH_BASE, ignore_errors=True)
+    log("bench: %s" % json.dumps(dict(
+        card=card, root="phase 22's" if have else "the bench's corpus",
+        step_ms={k: recs[k]["step_ms"] for k in ("step_pallas", "step_xla")},
+        img_s={k: recs[k]["value"] for k in recs},
+        mfu={k: recs[k]["mfu"] for k in ("step_pallas", "step_xla")},
+        hbm_util={k: recs[k]["hbm_util"] for k in ("step_pallas",
+                                                    "step_xla")},
+        step_flops_tf=recs["step_pallas"]["step_flops_tf"],
+        conv_tf_hooks=want / 1e12, conv_tf_roofline_table=table / 1e12,
+        step_hbm_gb={k: recs[k]["step_hbm_gb"] for k in ("step_pallas",
+                                                         "step_xla")},
+        e2e_img_s=recs["e2e"]["end_to_end_images_per_sec"],
+        h2d_mb_s=recs["e2e"]["h2d_mb_s"],
+        input_img_s=dict(decode=recs["e2e"]["input_images_per_sec_decode"],
+                         packed=recs["e2e"]["input_images_per_sec_packed"]),
+        infer_ms_per_frame=recs["infer"]["ms_per_frame"],
+        bench_infer_r101_b1={k: bench_infer_rec.get(k) for k in (
+            "latency_ms_per_frame", "step_flops_tf", "mfu",
+            "hbm_gb_per_step", "hbm_util")},
+        run_s=run_s)))
     return launches
 
 
@@ -4757,6 +4965,10 @@ def main(argv=()):
         "--optimizers-only", action="store_true",
         help="instead of the phases, build the CE kernels and run phase 22 "
              "(optax's optimizers by name) alone")
+    parser.add_argument(
+        "--bench-only", action="store_true",
+        help="instead of the phases, build the CE kernels and run phase 23 "
+             "(the port's bench) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4786,14 +4998,15 @@ def main(argv=()):
         log("infer_mesh: %.1f s" % (time.perf_counter() - t_start))
         return 0
     if (args.remat_only or args.step_tools_only or args.train_mesh_only
-            or args.optimizers_only):
+            or args.optimizers_only or args.bench_only):
         global OPTAX_TIMED
         OPTAX_TIMED = None  # phase 22 alone times every name's SAC step
         build_cuda(ce)
         for flag, phase in ((args.remat_only, run_remat_opt),
                             (args.step_tools_only, run_step_tools),
                             (args.train_mesh_only, run_train_mesh),
-                            (args.optimizers_only, run_optimizers)):
+                            (args.optimizers_only, run_optimizers),
+                            (args.bench_only, run_bench)):
             if flag:
                 t0 = time.perf_counter()
                 log("%s launches: %s" % (phase.__name__, json.dumps(
@@ -4853,7 +5066,7 @@ def main(argv=()):
     lap("vgg")
     run_infer_cli(ce, ce_triton, snapshot, device, card)
     lap("infer_cli")
-    run_bench_infer(device)
+    bench_infer_recs = run_bench_infer(device)
     lap("bench_infer")
     dataset = run_dataset(ce, ce_triton, device, card, native_build_s)
     lap("dataset")
@@ -4869,8 +5082,12 @@ def main(argv=()):
     lap("step_tools")
     tmesh_launches = run_train_mesh(ce, ce_triton, device, card)
     lap("train_mesh")
-    optax_launches = run_optimizers(ce, ce_triton, device, card)
+    optax_launches = run_optimizers(ce, ce_triton, device, card,
+                                    keep_root=BENCH_ROOT)
     lap("optimizers")
+    bench_launches = run_bench(ce, ce_triton, device, card, root=BENCH_ROOT,
+                               bench_infer_rec=bench_infer_recs[0])
+    lap("bench")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -4953,6 +5170,9 @@ def main(argv=()):
             row["launches_optimizers"] = {
                 part: (got[k] if cuda else 0)
                 for part, got in optax_launches.items()}
+            # the bench (phase 23), by run
+            row["launches_bench"] = {run: (got[k] if cuda else 0)
+                                     for run, got in bench_launches.items()}
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

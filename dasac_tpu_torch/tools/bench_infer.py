@@ -22,11 +22,15 @@ rank's run fenced with ``torch.cuda.synchronize()``; a step takes as long
 as its slowest rank.  Rank 0 prints ONE JSON line: img/s, ms per frame,
 every rank's step ms, the layout (``devices``, ``mesh``), the exchanges and
 bytes a forward by layer kind with their transport, peak allocated GB, and
-the card's name and power limit from ``nvidia-smi``.
+the card's name and power limit from ``nvidia-smi``; and the cost of the
+global call, counted once on rank 0 outside the timed window as the
+unsharded forward of the whole batch (``tools/bench.py``'s
+``count_cost``): ``step_flops_tf`` and ``hbm_gb_per_step``, and over the
+step time and the card's peaks times the ranks that ran it, ``mfu`` and
+``hbm_util`` (left out for a card or CPU not in ``tools/bench.py``'s
+table).
 
-Not ported: ``mfu`` and ``hbm_util`` (XLA's ``cost_analysis`` has no
-counterpart here; a FLOP count belongs to the port's bench, ROADMAP Queue
-1 item 6), and ``--dump-hlo`` / ``--compile-only`` (XLA only).
+Not ported: ``--dump-hlo`` / ``--compile-only`` (XLA only).
 
     python -m dasac_tpu_torch.tools.bench_infer --arch fcn_vgg16_bn --batch 4
     python -m dasac_tpu_torch.tools.bench_infer --mode spatial --sp 2
@@ -47,6 +51,8 @@ from dasac_tpu_torch.core.mesh import infer_mesh, sp_group
 from dasac_tpu_torch.infer.engine import make_infer_fn
 from dasac_tpu_torch.nn.factory import build_model
 from dasac_tpu_torch.nn.spatial import Sharded
+from dasac_tpu_torch.tools.bench import (bf16_peak_flops, count_cost,
+                                        hbm_peak_bw)
 from dasac_tpu_torch.utils.sys_tools import find_free_port
 
 # the config defaults (DATASET.MEAN / STD)
@@ -133,6 +139,17 @@ def layout(args, world):
     return lay
 
 
+def global_cost(args, model, device, b):
+    """``count_cost`` of the global call: the unsharded forward of the
+    whole batch, ``b`` frames from ``RandomState(0)`` (what XLA costs for
+    the program over the mesh)."""
+    fn = make_infer_fn(model, MEAN, STD, tuple(args.scales), args.flip,
+                       args.fuse, output=args.output, device=device)
+    frames = torch.from_numpy((np.random.RandomState(0).rand(
+        b, *args.hw, 3) * 255).astype(np.uint8)).to(device)
+    return count_cost(lambda: fn(frames))
+
+
 def bench(args, device, group):
     """The benchmark on this rank of ``group`` (``None``: alone)."""
     world, rank = (1, 0) if group is None else (group.size(), group.rank())
@@ -211,6 +228,14 @@ def bench(args, device, group):
         "card": card_name(),
     }
     if rank == 0:
+        flops, nbytes, _ = global_cost(args, model, device, b)
+        peak, bw = bf16_peak_flops(rec["card"]), hbm_peak_bw(rec["card"])
+        rec["step_flops_tf"] = flops / 1e12
+        rec["hbm_gb_per_step"] = nbytes / 1e9
+        if peak:
+            rec["mfu"] = flops / per_step / (peak * lay.ranks)
+        if bw:
+            rec["hbm_util"] = nbytes / per_step / (bw * lay.ranks)
         print(json.dumps(rec), flush=True)
     return rec
 

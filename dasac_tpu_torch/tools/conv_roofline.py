@@ -12,10 +12,10 @@ peak, and the implied ms a step.  The last line: the sum of those ms, the
 step's conv TFLOP and the img/s it would allow if everything else were
 free.  Every line is a JSON object with the card's name and power limit.
 
-The peak comes from the card's name (NVIDIA's data sheets, dense, without
-sparsity): H100 SXM 989.4 TF/s, H100 NVL 835.5, H100 PCIe 756.5;
-``--peak-tf`` overrides it (and gives one to a card or CPU not in the
-table, which otherwise gets no share).
+The peak comes from the card's name (``tools/bench.py``'s table: NVIDIA's
+data sheets, dense, without sparsity): H100 SXM 989.4 TF/s, H100 NVL
+835.5, H100 PCIe 756.5; ``--peak-tf`` overrides it (and gives one to a
+card or CPU not in the table, which otherwise gets no share).
 
     python -m dasac_tpu_torch.tools.conv_roofline [--batch 16] [--iters 10]
 """
@@ -28,11 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from dasac_tpu_torch.core.device import autotune_convolutions, resolve_device
-from dasac_tpu_torch.tools import flagship
-
-# dense bf16 tensor-core peak by product, TF/s (NVIDIA data sheets); the
-# first name that the card's name contains wins
-BF16_PEAK_TF = (("H100 PCIe", 756.5), ("H100 NVL", 835.5), ("H100", 989.4))
+from dasac_tpu_torch.tools import bench, flagship
 
 
 # (name, spatial_hw, cin, cout, ksize, dilation, per_step_multiplicity)
@@ -71,7 +67,7 @@ def peak_tf(card, override=None):
     ``override`` when given, else None for a card not in the table."""
     if override is not None:
         return override
-    return next((tf for key, tf in BF16_PEAK_TF if key in card), None)
+    return next((tf for key, tf in bench.BF16_PEAK_TF if key in card), None)
 
 
 def parse_args(argv):
@@ -85,15 +81,16 @@ def parse_args(argv):
     return ap.parse_args(argv)
 
 
-def conv_case(batch, hw, cin, cout, ks, d, device, rng):
+def conv_case(batch, hw, cin, cout, ks, d, device, gen):
     """``run()``: forward + data grad + weight grad of one bf16 conv on
-    NHWC (``channels_last``) tensors, SAME padding, stride 1."""
+    NHWC (``channels_last``) tensors, SAME padding, stride 1, drawn on
+    ``device`` from ``gen`` (drawn on the host, the table's 2.2e9 values
+    took most of the tool's run)."""
     cl = torch.channels_last
 
     def rand(*shape, scale=1.0):
-        return torch.from_numpy((rng.randn(*shape) * scale).astype(
-            np.float32)).to(device, torch.bfloat16).contiguous(
-                memory_format=cl)
+        return (torch.randn(*shape, generator=gen, device=device) * scale
+                ).to(torch.bfloat16).contiguous(memory_format=cl)
 
     x = rand(batch, cin, *hw, scale=0.1).requires_grad_()
     w = rand(cout, cin, ks, ks, scale=1 / np.sqrt(ks * ks * cin))
@@ -117,10 +114,10 @@ def main(argv=None, device=None):
     autotune_convolutions(device)
     card = flagship.device_label(device)
     peak = peak_tf(card, args.peak_tf)
-    rng = np.random.RandomState(0)
+    gen = torch.Generator(device=device).manual_seed(0)
     rows, total_flops, total_ms = [], 0.0, 0.0
     for name, hw, cin, cout, ks, d, mult in flagship_convs():
-        run = conv_case(args.batch, hw, cin, cout, ks, d, device, rng)
+        run = conv_case(args.batch, hw, cin, cout, ks, d, device, gen)
         ms = flagship.median_ms(run, device, args.iters)
         # fwd + both grads = 3 conv applications
         fl = 3 * 2 * args.batch * hw[0] * hw[1] * ks * ks * cin * cout

@@ -6,7 +6,8 @@ the root ``bench.py``'s ``_build`` and ``_device_batch``, which
 DeepLabv2/ResNet-101 in bf16 with random weights from a seed; 8 source
 frames and 2 groups x 4 target views at 512x1024; SGD over the four LR
 groups with ``bench.py``'s MODEL section; the step config of ``bench.py``
-(bf16 refine at stride 8, the CUDA CE kernels).  Every size is a flag
+(bf16 refine at stride 8; the step tools take the CUDA CE kernels, the
+bench ``bench.py``'s ``--ce-impl``).  Every size is a flag
 (:func:`add_step_args`), so the tools also run tiny on the CPU.
 """
 
@@ -47,15 +48,18 @@ def add_step_args(ap):
     ap.add_argument("--group-size", type=int, default=GROUP_SIZE)
 
 
-def step_config(args, refine_dtype="bfloat16", refine_res="stride8"):
+def step_config(args, refine_dtype="bfloat16", refine_res="stride8",
+                ce_impl="kernel", loss_dtype="float32"):
     """``bench.py``'s step config at ``args``' sizes, with the refine
-    chain's dtype and resolution (``TPU.REFINE_DTYPE``, ``REFINE_RES``)."""
+    chain's dtype and resolution (``TPU.REFINE_DTYPE``, ``REFINE_RES``),
+    the CE route (``kernel``: the CUDA pair; ``logsoftmax``: the plain
+    formula) and the CE's precision (``TPU.LOSS_DTYPE``)."""
     return steps.StepConfig(
         num_classes=C, crop_hw=tuple(args.hw), group_size=args.group_size,
         lr_target=5.0, net_momentum_iter=100, zoom=(0.5, 1.0),
         guided_hflip=True, tgt_blur=True, tgt_jitter=0.4, tgt_greyscale=0.2,
         src_scale=(0.5, 1.0), refine_dtype=refine_dtype,
-        refine_res=refine_res, ce_impl="kernel")
+        refine_res=refine_res, ce_impl=ce_impl, loss_dtype=loss_dtype)
 
 
 def build_state(args, device, remat="none"):

@@ -30,7 +30,10 @@ what one process exports.  Remat: under ``TPU.REMAT convs`` a shallow
 r101's forward on the card keeps less than under none and more than under
 block (the conv outputs), and its backward replays no convolution but the
 stem's; the SAC views step with Adam agrees with the CPU's (the
-tolerances of ``chip_smoke.check_adam_agreement``).
+tolerances of ``chip_smoke.check_adam_agreement``).  The bench
+(``tools/bench.py``): a tiny ``--ce-impl pallas`` step counts 2 + 2
+launches a step on the bulk path, and reads ``mfu`` and ``hbm_util`` in
+(0, 1.05].
 
 Without a card every test here skips.  Tolerances, absolute: NLL 1e-4 (a
 few f32 ulps of values up to ~25), f32 dx 1e-6, bf16 dx one bf16 ulp at 1
@@ -51,6 +54,7 @@ from dasac_tpu_torch.nn.factory import build_model
 from dasac_tpu_torch.nn.spatial import Sharded
 from dasac_tpu_torch.ops import ce, ce_triton
 from dasac_tpu_torch.sac import core
+from dasac_tpu_torch.tools import bench
 from dasac_tpu_torch.train import optim, steps
 from dasac_tpu_torch.utils.sys_tools import find_free_port
 
@@ -759,3 +763,24 @@ def test_one_rank_nccl_gspmd_steps_equal_the_one_process_steps(
         assert all(torch.equal(g[0][k], p[0][k]) for k in p[0]
                    if k != "self_ce_per_class"), kind
         assert all(torch.equal(g[1][k], p[1][k]) for k in p[1]), kind
+
+
+# ---------------------------------------------------------------------------
+# the bench (tools/bench.py)
+# ---------------------------------------------------------------------------
+
+BENCH_TINY = ["--arch", "tiny", "--hw", "64", "96", "--batch", "2",
+              "--groups", "1", "--group-size", "2", "--iters", "3",
+              "--mode", "step", "--ce-impl", "pallas"]
+
+
+def test_bench_step_launches_two_plus_two_on_the_bulk_path(cuda):
+    out = bench.main(BENCH_TINY, device=cuda)
+    assert out["ce_launches"] == {k: {"bulk": 2 * 3, "strided": 0}
+                                  for k in ("nll_fwd", "nll_bwd")}
+
+
+def test_bench_step_reads_mfu_and_hbm_util_up_to_one(cuda):
+    out = bench.main(BENCH_TINY, device=cuda)
+    assert 0 < out["mfu"] <= 1.05 and 0 < out["hbm_util"] <= 1.05
+    assert out["step_flops_tf"] > 0 and out["card"].startswith("NVIDIA")
