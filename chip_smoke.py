@@ -217,8 +217,8 @@ no result line:
               L2 1e-3, parameters and moments within rtol 1e-3 of a CPU
               Adam fed the card's gradients);
  20. step_tools  each step tool's ``main`` at its flagship defaults
-              (``tools/flagship.py``): ``profile_step`` (six stages, 2
-              timed calls each) under each remat mode, ``conv_roofline``
+              (``tools/flagship.py``): ``profile_step`` (six stages'
+              spans in 2 timed steps) under each remat mode, ``conv_roofline``
               (every shape's TF/s and share of the card's dense bf16
               peak, the conv-bound floor),
               ``op_traffic`` (top 15 ops, totals) under none and convs,
@@ -3909,7 +3909,7 @@ def run_remat_opt(ce, ce_triton, device, card, vgg_none=None):
 # --warmup, --steps, --every of compare_refine_res in the smoke (the tool's
 # own defaults, 300 each, take ~6 min; cut for the smoke's time limit)
 CRR_ARGS = ["--warmup", "6", "--steps", "6", "--every", "3"]
-# profile_step's timed calls a stage in the smoke (its default is 5; cut
+# profile_step's timed steps in the smoke (its default is 5; cut
 # for the smoke's time limit)
 PROFILE_ITERS = 2
 
@@ -3919,9 +3919,8 @@ def run_step_tools(ce, ce_triton, device, card):
     (``tools/flagship.py``: r101 bf16, 8 + 2 x 4 frames at 512x1024), with
     cuDNN autotuning off before (the tool turns it on) and the launch
     counts set to 0 before and read after each: ``profile_step`` under
-    each remat mode, ``PROFILE_ITERS`` timed calls a stage (4 + 4 a
-    warm-up or timed call of src_grad, tgt_grad
-    and full together), ``conv_roofline`` (no CE), ``op_traffic`` under
+    each remat mode, a warm-up and ``PROFILE_ITERS`` timed steps (2 + 2
+    a step), ``conv_roofline`` (no CE), ``op_traffic`` under
     none and convs (2 + 2 in each of its 2 steps) and
     ``compare_refine_res`` cut to ``CRR_ARGS`` (2 + 2 in each of its
     warm-up and arm steps).  Returns the launches by tool."""
@@ -3950,7 +3949,7 @@ def run_step_tools(ce, ce_triton, device, card):
     for mode in REMAT_MODES:
         res = run("profile_step_" + mode, lambda: profile_step.main(
             ["--remat", mode, "--iters", str(iters)], device=device),
-            4 * (iters + 1))
+            2 * (iters + 1))
         need(set(res) == set(profile_step.STAGES)
              and all(math.isfinite(v) and v > 0 for v in res.values()),
              "profile_step %s: %s" % (mode, res))

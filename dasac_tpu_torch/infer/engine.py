@@ -36,6 +36,7 @@ from dasac_tpu_torch.nn.functional import (resize_bilinear_align_corners,
                                            resize_linear)
 from dasac_tpu_torch.nn.spatial import Sharded, frame_hw
 from dasac_tpu_torch.train.metrics import confusion_matrix
+from dasac_tpu_torch.utils.spans import span
 
 PROGRESS_EVERY = 50   # frames between run_inference's progress lines
 
@@ -88,6 +89,8 @@ def make_infer_fn(model, mean, std, scales=(1.0,), flip=False, fuse="full",
     scale is resized whole and then sharded, and ``fn`` returns this
     rank's rows (``sharded.own(H)``) of the result.  Flip mirrors W, which
     every rank holds whole.
+
+    Each call is an ``infer`` span (``utils/spans.py``).
     """
     if fuse not in ("full", "stride8"):
         raise ValueError("fuse must be full/stride8, got %r" % fuse)
@@ -133,16 +136,17 @@ def make_infer_fn(model, mean, std, scales=(1.0,), flip=False, fuse="full",
 
     @torch.no_grad()
     def fn(images_u8):
-        x = torch.as_tensor(images_u8).to(device, non_blocking=True)
-        x = P.normalize(x.float() / 255.0, mean, std)
-        b, h, w = x.shape[0], x.shape[1], x.shape[2]
-        scaled = [x if s == 1.0 else
-                  resize_linear(x, (int(round(h * s)), int(round(w * s))))
-                  for s in scales]
-        if sharded is None:
-            return fused(scaled, b, h, w)
-        with sharded.frame():
-            return fused([sharded.shard(xs, 1) for xs in scaled], b, h, w)
+        with span("infer", device):
+            x = torch.as_tensor(images_u8).to(device, non_blocking=True)
+            x = P.normalize(x.float() / 255.0, mean, std)
+            b, h, w = x.shape[0], x.shape[1], x.shape[2]
+            scaled = [x if s == 1.0 else
+                      resize_linear(x, (int(round(h * s)), int(round(w * s))))
+                      for s in scales]
+            if sharded is None:
+                return fused(scaled, b, h, w)
+            with sharded.frame():
+                return fused([sharded.shard(xs, 1) for xs in scaled], b, h, w)
 
     return fn
 

@@ -15,6 +15,11 @@ backward sends each fetched row's gradient back to its owner (rows outside
 the frame get none); the half-pixel resize runs on whole frames only (the
 inference program and the gspmd steps apply it before the frame is
 sharded).
+
+``HOST_MATRICES`` counts the interpolation matrices the align-corners
+resize builds on the host and copies to the input's device, and their
+bytes (``spans.growth("host_matrices")`` over recorded spans); each resize
+that changes the size is a ``resize`` span (``utils/spans.py``).
 """
 
 import numpy as np
@@ -23,6 +28,11 @@ import torch.nn.functional as F
 
 from dasac_tpu_torch.nn import spatial
 from dasac_tpu_torch.nn.layers import empty_rows
+from dasac_tpu_torch.utils import spans
+
+# the numpy-built interpolation matrices copied to a device, always on
+HOST_MATRICES = {"count": 0, "bytes": 0}
+spans.probe("host_matrices", lambda: dict(HOST_MATRICES))
 
 
 def _linear_indices_weights(in_size, out_size):
@@ -63,6 +73,21 @@ def resize_bilinear_align_corners(x, size, compute_dtype=torch.float32):
         in_h = ctx.rows(x, 1)
     if (in_h, in_w) == (out_h, out_w):
         return x
+    with spans.span("resize", x.device):
+        return _resize_products(x, ctx, (in_h, in_w), (out_h, out_w),
+                                compute_dtype)
+
+
+def _host_to_device(m, device, dtype):
+    HOST_MATRICES["count"] += 1
+    HOST_MATRICES["bytes"] += m.nbytes
+    return torch.from_numpy(m).to(device, dtype)
+
+
+def _resize_products(x, ctx, in_hw, out_hw, compute_dtype):
+    """The resize's matrices and products (``ctx``: the frame or None)."""
+    b, _, _, c = x.shape
+    (in_h, in_w), (out_h, out_w) = in_hw, out_hw
     orig_dtype = x.dtype
     mh = _linear_matrix(in_h, out_h)
     if ctx is not None:
@@ -80,9 +105,8 @@ def resize_bilinear_align_corners(x, size, compute_dtype=torch.float32):
         mh, in_h, out_rows = mh[lo:hi, r0:r1], r1 - r0, hi - lo
     else:
         out_rows = out_h
-    mh = torch.from_numpy(np.ascontiguousarray(mh)).to(x.device,
-                                                        compute_dtype)
-    mw = torch.from_numpy(_linear_matrix(in_w, out_w)).to(x.device, compute_dtype)
+    mh = _host_to_device(np.ascontiguousarray(mh), x.device, compute_dtype)
+    mw = _host_to_device(_linear_matrix(in_w, out_w), x.device, compute_dtype)
     xf = x.to(compute_dtype).reshape(b, in_h, in_w * c)
     xf = torch.matmul(mh, xf)                                # [B, oh, W*C]
     xf = torch.matmul(mw, xf.view(b * out_rows, in_w, c))    # [B*oh, ow, C]

@@ -31,6 +31,12 @@ spawns a ``(2, 2)`` world; joined, the world's size is the layout's.
 
 A rank that fails makes the spawning process fail with its traceback; a
 rank left waiting at a collective gives up after ``dist.TIMEOUT``.
+
+``--profile`` traces the whole run with ``torch.profiler`` into
+``<logdir>/trace.json``, and prints and writes to ``<logdir>/spans.txt``
+one line a span of the port (``utils/spans.py``: the steps' phases, the
+loader's wait ``load``, the resizes): the spans it ran directly inside,
+its count, and its host and stream ms a train step.
 """
 
 import os
@@ -47,6 +53,7 @@ from dasac_tpu_torch.core.config import (cfg, cfg_from_file, cfg_from_list,
 from dasac_tpu_torch.core.device import autotune_convolutions, resolve_device
 from dasac_tpu_torch.core.opts import get_arguments, launch_plan
 from dasac_tpu_torch.train import loop
+from dasac_tpu_torch.utils import spans
 from dasac_tpu_torch.utils.sys_tools import find_free_port
 
 
@@ -80,6 +87,20 @@ def main(argv=None, device=None):
             spawn(n, argv, device)
             return None
     return run(args, device, launch)
+
+
+def span_lines(totals):
+    """One line a span of ``totals`` (``spans.totals()``), by stream ms:
+    its parents (``-``: none), count, and host and stream ms a train
+    step (a ``step.*`` span)."""
+    steps = sum(t.count for k, t in totals.items()
+                if k.startswith("step.")) or 1
+    return ["span {:<10s} in {:<24s} count {:7d}  host {:10.3f} ms  "
+            "stream {:10.3f} ms a step".format(
+                name, ",".join(sorted(p or "-" for p in t.parents)), t.count,
+                t.host_ms / steps, t.stream_ms / steps)
+            for name, t in sorted(totals.items(),
+                                  key=lambda kv: -kv[1].stream_ms)]
 
 
 def spawn(n, argv, device):
@@ -143,6 +164,11 @@ def run(args, device, launch=None):
                 path = os.path.join(args.logdir, "trace.json")
                 prof.export_chrome_trace(path)
                 print("Profiler trace -> {}".format(path))
+                lines = span_lines(spans.totals())
+                path = os.path.join(args.logdir, "spans.txt")
+                with open(path, "w") as f:
+                    f.write("".join(ln + "\n" for ln in lines))
+                print("\n".join(lines + ["Spans -> {}".format(path)]))
         if launch is not None:
             dist.destroy()
     return trainer

@@ -51,6 +51,7 @@ from dasac_tpu_torch.train.checkpoints import BestTracker, Checkpointer
 from dasac_tpu_torch.train.metrics import StatManager, summarise
 from dasac_tpu_torch.utils import visualise
 from dasac_tpu_torch.utils.logging import NullWriter, ScalarWriter
+from dasac_tpu_torch.utils.spans import span
 from dasac_tpu_torch.utils.timer import Timer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -74,6 +75,18 @@ def mesh_size(cfg, available, world=None, n_local=None):
     ``world`` already joined (``core.mesh.train_mesh``)."""
     check_partition(cfg)
     return train_mesh(cfg, available, world, n_local)
+
+
+def _loaded(batches, device):
+    """``batches``, each taken from its loader inside a ``load`` span (the
+    loader's wait, under a profiler) for the step on ``device``."""
+    it = iter(batches)
+    while True:
+        with span("load", device):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def _local_ranks():
@@ -278,7 +291,7 @@ class Trainer:
         pending = None  # read the metrics one step late (no sync stall)
         marks = []
         for i, ((src_i, src_l), (tgt_i, tgt_l)) in enumerate(
-                zip(src_loader, tgt_loader)):
+                _loaded(zip(src_loader, tgt_loader), self.device)):
             start = self._mark()
             metrics = self.train_step(self.state, (src_i, src_l, tgt_i, tgt_l),
                                       self.generator)

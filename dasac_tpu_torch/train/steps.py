@@ -24,6 +24,17 @@ ranks; confusions are summed.  The model's BN layers were built with the
 same group (``nn.factory.build_model``).  Without a group nothing is
 communicated.
 
+Spans (``utils/spans.py``, recorded only under a profiler or
+``spans.recording()``): ``step.sac`` encloses a whole SAC step call, with
+``aug`` (the batch's copy to the device and ``augment_sac``), ``ema``
+(``_update_teacher``), ``teacher`` (the teacher forward), ``refine``
+(refine, running confidence, pseudo-labels), ``src_grad`` and ``tgt_grad``
+(each branch's forward, loss and backward) and ``optim`` (the gradients'
+average, the optimizer step, the metrics) inside; ``step.abn`` encloses an
+ABN step call, with ``aug``, ``src_grad``, ``optim`` and ``tgt_stats``
+(the target pass and the metrics) inside.  The gspmd steps have the same
+spans at the same places.
+
 gspmd (``TPU.PARTITION`` gspmd, the ``make_gspmd_*`` builders; the
 counterpart of ``dasac_tpu``'s ``gspmd_train_step`` and its siblings):
 the ranks of a ``(data, sp)`` world (``core.mesh.TrainGroups``) run the
@@ -57,6 +68,7 @@ from dasac_tpu_torch.nn import layers, spatial
 from dasac_tpu_torch.sac import core as sac_core
 from dasac_tpu_torch.sac import refine as sac_refine
 from dasac_tpu_torch.train.metrics import confusion_matrix
+from dasac_tpu_torch.utils.spans import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -217,8 +229,11 @@ def make_sac_step(scfg: StepConfig, device=None, group=None):
     views_step = make_sac_views_step(scfg, group=group)
 
     def step(state, batch, generator):
-        return views_step(state, *augment_sac(
-            scfg, generator, _to_device(device, *batch)), generator)
+        with span("step.sac", device):
+            with span("aug"):
+                inputs = augment_sac(scfg, generator,
+                                     _to_device(device, *batch))
+            return views_step(state, *inputs, generator)
 
     return step
 
@@ -279,66 +294,74 @@ def make_sac_views_step(scfg: StepConfig, debug=False, group=None):
     def views_step(state, src_frames, src_lbls, views, generator=None):
         model, opt = state.model, state.optimizer
 
-        teacher, slow_init, running_conf, teacher_diff = _update_teacher(
-            state, scfg)
+        with span("ema"):
+            teacher, slow_init, running_conf, teacher_diff = (
+                _update_teacher(state, scfg))
         with torch.no_grad():
             # ---- teacher branch on clean views (no grad) ------------------
-            t_logits, _ = functional_call(
-                model, teacher, (views.frames_clean,),
-                dict(train=False, update_stats=False))
-            refined, diags = sac_refine.refine(
-                t_logits, views.affine, views.affine_inv, views.padding,
-                group_size=scfg.group_size, pool=scfg.pool,
-                pool_on=scfg.pool_on, compute_dtype=rd, res=scfg.refine_res)
-            running_conf = sac_core.update_running_conf(
-                running_conf, diags["teacher_probs"], scfg.stat_momentum,
-                scfg.threshold_beta, group=group)
-            pseudo, conf, _ = sac_core.pseudo_labels(
-                refined, views.padding, running_conf,
-                upper=scfg.run_conf_upper, lower=scfg.run_conf_lower,
-                threshold_beta=scfg.threshold_beta,
-                discount=scfg.conf_discount, compute_dtype=rd_pl)
+            with span("teacher"):
+                t_logits, _ = functional_call(
+                    model, teacher, (views.frames_clean,),
+                    dict(train=False, update_stats=False))
+            with span("refine"):
+                refined, diags = sac_refine.refine(
+                    t_logits, views.affine, views.affine_inv, views.padding,
+                    group_size=scfg.group_size, pool=scfg.pool,
+                    pool_on=scfg.pool_on, compute_dtype=rd,
+                    res=scfg.refine_res)
+                running_conf = sac_core.update_running_conf(
+                    running_conf, diags["teacher_probs"], scfg.stat_momentum,
+                    scfg.threshold_beta, group=group)
+                pseudo, conf, _ = sac_core.pseudo_labels(
+                    refined, views.padding, running_conf,
+                    upper=scfg.run_conf_upper, lower=scfg.run_conf_lower,
+                    threshold_beta=scfg.threshold_beta,
+                    discount=scfg.conf_discount, compute_dtype=rd_pl)
             del t_logits, diags
             if not debug or debug == "light":
                 del refined
 
         # ---- source backward, then target backward (grads accumulate) ----
         # student forwards run in train mode (dropout on); BN stays frozen
-        opt.zero_grad(set_to_none=True)
-        if scfg.target_only:
-            ce_src = torch.zeros((), device=running_conf.device)
-        else:
-            _, src_up = model(src_frames, train=True, update_stats=False,
-                              generator=generator)
-            ce_src = sac_core.cross_entropy_mean(
-                src_up, src_lbls, compute_dtype=ld, impl=scfg.ce_impl)
-            ce_src.backward()
-            del src_up
-        _, tgt_up = model(views.frames_aug, train=True, update_stats=False,
-                          generator=generator)
-        self_ce, per_class = sac_core.focal_ce(
-            tgt_up, pseudo, conf, running_conf, p=scfg.focal_p,
-            use_conf=scfg.use_conf_loss, compute_dtype=ld, impl=scfg.ce_impl)
-        (scfg.lr_target * self_ce).backward()
-        del tgt_up
-        _average_grads(model, group)
+        with span("src_grad"):
+            opt.zero_grad(set_to_none=True)
+            if scfg.target_only:
+                ce_src = torch.zeros((), device=running_conf.device)
+            else:
+                _, src_up = model(src_frames, train=True, update_stats=False,
+                                  generator=generator)
+                ce_src = sac_core.cross_entropy_mean(
+                    src_up, src_lbls, compute_dtype=ld, impl=scfg.ce_impl)
+                ce_src.backward()
+                del src_up
+        with span("tgt_grad"):
+            _, tgt_up = model(views.frames_aug, train=True,
+                              update_stats=False, generator=generator)
+            self_ce, per_class = sac_core.focal_ce(
+                tgt_up, pseudo, conf, running_conf, p=scfg.focal_p,
+                use_conf=scfg.use_conf_loss, compute_dtype=ld,
+                impl=scfg.ce_impl)
+            (scfg.lr_target * self_ce).backward()
+            del tgt_up
+        with span("optim"):
+            _average_grads(model, group)
 
-        grads = None
-        if debug and debug != "light":
-            grads = {k: p.grad.detach().clone()
-                     for k, p in model.named_parameters()}
-        opt.step()
+            grads = None
+            if debug and debug != "light":
+                grads = {k: p.grad.detach().clone()
+                         for k, p in model.named_parameters()}
+            opt.step()
 
-        state.running_conf = running_conf
-        state.slow_init = slow_init
-        state.step += 1
-        metrics = _average_metrics({
-            "src_loss_ce": ce_src.detach(),
-            "self_ce": self_ce.detach(),
-            "teacher_diff": teacher_diff,
-            "pseudo_cover": (pseudo != sac_core.IGNORE).float().mean(),
-            "self_ce_per_class": per_class,
-        }, group)
+            state.running_conf = running_conf
+            state.slow_init = slow_init
+            state.step += 1
+            metrics = _average_metrics({
+                "src_loss_ce": ce_src.detach(),
+                "self_ce": self_ce.detach(),
+                "teacher_diff": teacher_diff,
+                "pseudo_cover": (pseudo != sac_core.IGNORE).float().mean(),
+                "self_ce_per_class": per_class,
+            }, group)
         if debug:
             metrics.update(pseudo=pseudo, running_conf=running_conf)
             if debug != "light":
@@ -370,9 +393,11 @@ def make_abn_step(scfg: StepConfig, device=None, group=None):
     frames_step = make_abn_frames_step(scfg, group=group)
 
     def step(state, batch, generator):
-        return frames_step(state, *augment_abn(scfg, generator,
-                                               _to_device(device, *batch)),
-                           generator)
+        with span("step.abn", device):
+            with span("aug"):
+                inputs = augment_abn(scfg, generator,
+                                     _to_device(device, *batch))
+            return frames_step(state, *inputs, generator)
 
     return step
 
@@ -413,25 +438,28 @@ def make_abn_frames_step(scfg: StepConfig, group=None):
     def frames_step(state, src_frames, src_lbls, tgt_frames, tgt_lbls,
                     generator=None):
         model, opt = state.model, state.optimizer
-        opt.zero_grad(set_to_none=True)
-        _, src_up = model(src_frames, train=True, update_stats=True,
-                          generator=generator)
-        ce_src = sac_core.cross_entropy_mean(src_up, src_lbls,
-                                             impl=scfg.ce_impl)
-        ce_src.backward()
-        del src_up
-        _average_grads(model, group)
-        opt.step()
+        with span("src_grad"):
+            opt.zero_grad(set_to_none=True)
+            _, src_up = model(src_frames, train=True, update_stats=True,
+                              generator=generator)
+            ce_src = sac_core.cross_entropy_mean(src_up, src_lbls,
+                                                 impl=scfg.ce_impl)
+            ce_src.backward()
+            del src_up
+        with span("optim"):
+            _average_grads(model, group)
+            opt.step()
 
         # target pass: BN statistics only, no gradient (train.py:286-289)
-        with torch.no_grad():
-            _, tgt_up = model(tgt_frames, train=True, update_stats=True,
-                              generator=generator)
-            ce_tgt = sac_core.cross_entropy_mean(tgt_up, tgt_lbls,
-                                                 impl=scfg.ce_impl)
-        state.step += 1
-        return _average_metrics({"src_loss_ce": ce_src.detach(),
-                                 "loss_ce": ce_tgt}, group)
+        with span("tgt_stats"):
+            with torch.no_grad():
+                _, tgt_up = model(tgt_frames, train=True, update_stats=True,
+                                  generator=generator)
+                ce_tgt = sac_core.cross_entropy_mean(tgt_up, tgt_lbls,
+                                                     impl=scfg.ce_impl)
+            state.step += 1
+            return _average_metrics({"src_loss_ce": ce_src.detach(),
+                                     "loss_ce": ce_tgt}, group)
 
     return frames_step
 
@@ -593,9 +621,11 @@ def make_gspmd_sac_step(scfg: StepConfig, groups, device=None):
     views_step = make_gspmd_sac_views_step(scfg, groups)
 
     def step(state, batch, generator):
-        return views_step(state, *augment_sac(
-            scfg, generator, _to_device(device, *batch), glob.part),
-            generator)
+        with span("step.sac", device):
+            with span("aug"):
+                inputs = augment_sac(scfg, generator,
+                                     _to_device(device, *batch), glob.part)
+            return views_step(state, *inputs, generator)
 
     return step
 
@@ -612,60 +642,67 @@ def make_gspmd_sac_views_step(scfg: StepConfig, groups):
 
     def views_step(state, src_frames, src_lbls, views, generator=None):
         model, opt = state.model, state.optimizer
-        teacher, slow_init, running_conf, teacher_diff = _update_teacher(
-            state, scfg)
+        with span("ema"):
+            teacher, slow_init, running_conf, teacher_diff = (
+                _update_teacher(state, scfg))
         with torch.no_grad():
-            t_logits, _ = _teacher_forward(glob, model, teacher,
-                                           views.frames_clean, False)
-            refined, diags = sac_refine.refine(
-                t_logits, views.affine, views.affine_inv, views.padding,
-                group_size=scfg.group_size, pool=scfg.pool,
-                pool_on=scfg.pool_on, compute_dtype=rd, res=scfg.refine_res)
-            probs = diags["teacher_probs"]
-            running_conf = sac_core.update_running_conf(
-                running_conf, glob.rows(probs), scfg.stat_momentum,
-                scfg.threshold_beta, share=glob.share(probs))
-            pseudo, conf, _ = sac_core.pseudo_labels(
-                refined, views.padding, running_conf,
-                upper=scfg.run_conf_upper, lower=scfg.run_conf_lower,
-                threshold_beta=scfg.threshold_beta,
-                discount=scfg.conf_discount, compute_dtype=rd_pl)
-            share = glob.share(pseudo)
-            pseudo, conf = glob.rows(pseudo), glob.rows(conf)
+            with span("teacher"):
+                t_logits, _ = _teacher_forward(glob, model, teacher,
+                                               views.frames_clean, False)
+            with span("refine"):
+                refined, diags = sac_refine.refine(
+                    t_logits, views.affine, views.affine_inv, views.padding,
+                    group_size=scfg.group_size, pool=scfg.pool,
+                    pool_on=scfg.pool_on, compute_dtype=rd,
+                    res=scfg.refine_res)
+                probs = diags["teacher_probs"]
+                running_conf = sac_core.update_running_conf(
+                    running_conf, glob.rows(probs), scfg.stat_momentum,
+                    scfg.threshold_beta, share=glob.share(probs))
+                pseudo, conf, _ = sac_core.pseudo_labels(
+                    refined, views.padding, running_conf,
+                    upper=scfg.run_conf_upper, lower=scfg.run_conf_lower,
+                    threshold_beta=scfg.threshold_beta,
+                    discount=scfg.conf_discount, compute_dtype=rd_pl)
+                share = glob.share(pseudo)
+                pseudo, conf = glob.rows(pseudo), glob.rows(conf)
             del t_logits, diags, refined, probs
 
         # ---- source backward, then target backward, on this rank's rows --
-        opt.zero_grad(set_to_none=True)
         kw = dict(train=True, update_stats=False, generator=generator)
-        if scfg.target_only:
-            ce_src = torch.zeros((), device=running_conf.device)
-        else:
-            _, src_up = glob.run(lambda x: model(x, **kw), src_frames)
-            ce_src = sac_core.cross_entropy_mean(
-                src_up, glob.rows(src_lbls), compute_dtype=ld,
-                impl=scfg.ce_impl, share=glob.share(src_lbls))
-            ce_src.backward()
-            del src_up
-        _, tgt_up = glob.run(lambda x: model(x, **kw), views.frames_aug)
-        self_ce, per_class = sac_core.focal_ce(
-            tgt_up, pseudo, conf, running_conf, p=scfg.focal_p,
-            use_conf=scfg.use_conf_loss, compute_dtype=ld, impl=scfg.ce_impl,
-            share=share)
-        (scfg.lr_target * self_ce).backward()
-        del tgt_up
-        dist.all_reduce_sum_grads_(model.parameters(), groups.world)
-        opt.step()
+        with span("src_grad"):
+            opt.zero_grad(set_to_none=True)
+            if scfg.target_only:
+                ce_src = torch.zeros((), device=running_conf.device)
+            else:
+                _, src_up = glob.run(lambda x: model(x, **kw), src_frames)
+                ce_src = sac_core.cross_entropy_mean(
+                    src_up, glob.rows(src_lbls), compute_dtype=ld,
+                    impl=scfg.ce_impl, share=glob.share(src_lbls))
+                ce_src.backward()
+                del src_up
+        with span("tgt_grad"):
+            _, tgt_up = glob.run(lambda x: model(x, **kw), views.frames_aug)
+            self_ce, per_class = sac_core.focal_ce(
+                tgt_up, pseudo, conf, running_conf, p=scfg.focal_p,
+                use_conf=scfg.use_conf_loss, compute_dtype=ld,
+                impl=scfg.ce_impl, share=share)
+            (scfg.lr_target * self_ce).backward()
+            del tgt_up
+        with span("optim"):
+            dist.all_reduce_sum_grads_(model.parameters(), groups.world)
+            opt.step()
 
-        state.running_conf = running_conf
-        state.slow_init = slow_init
-        state.step += 1
-        metrics = glob.sum({
-            "src_loss_ce": ce_src,
-            "self_ce": self_ce,
-            "pseudo_cover": (pseudo != sac_core.IGNORE).float().mean()
-                            * share.frac,
-            "self_ce_per_class": per_class,
-        })
+            state.running_conf = running_conf
+            state.slow_init = slow_init
+            state.step += 1
+            metrics = glob.sum({
+                "src_loss_ce": ce_src,
+                "self_ce": self_ce,
+                "pseudo_cover": (pseudo != sac_core.IGNORE).float().mean()
+                                * share.frac,
+                "self_ce_per_class": per_class,
+            })
         metrics["teacher_diff"] = teacher_diff   # the same on every rank
         return metrics
 
@@ -680,9 +717,11 @@ def make_gspmd_abn_step(scfg: StepConfig, groups, device=None):
     frames_step = make_gspmd_abn_frames_step(scfg, groups)
 
     def step(state, batch, generator):
-        return frames_step(state, *augment_abn(
-            scfg, generator, _to_device(device, *batch), glob.part),
-            generator)
+        with span("step.abn", device):
+            with span("aug"):
+                inputs = augment_abn(scfg, generator,
+                                     _to_device(device, *batch), glob.part)
+            return frames_step(state, *inputs, generator)
 
     return step
 
@@ -698,23 +737,26 @@ def make_gspmd_abn_frames_step(scfg: StepConfig, groups):
                     generator=None):
         model, opt = state.model, state.optimizer
         kw = dict(train=True, update_stats=True, generator=generator)
-        opt.zero_grad(set_to_none=True)
-        _, src_up = glob.run(lambda x: model(x, **kw), src_frames)
-        ce_src = sac_core.cross_entropy_mean(
-            src_up, glob.rows(src_lbls), impl=scfg.ce_impl,
-            share=glob.share(src_lbls))
-        ce_src.backward()
-        del src_up
-        dist.all_reduce_sum_grads_(model.parameters(), groups.world)
-        opt.step()
+        with span("src_grad"):
+            opt.zero_grad(set_to_none=True)
+            _, src_up = glob.run(lambda x: model(x, **kw), src_frames)
+            ce_src = sac_core.cross_entropy_mean(
+                src_up, glob.rows(src_lbls), impl=scfg.ce_impl,
+                share=glob.share(src_lbls))
+            ce_src.backward()
+            del src_up
+        with span("optim"):
+            dist.all_reduce_sum_grads_(model.parameters(), groups.world)
+            opt.step()
 
-        with torch.no_grad():
-            _, tgt_up = glob.run(lambda x: model(x, **kw), tgt_frames)
-            ce_tgt = sac_core.cross_entropy_mean(
-                tgt_up, glob.rows(tgt_lbls), impl=scfg.ce_impl,
-                share=glob.share(tgt_lbls))
-        state.step += 1
-        return glob.sum({"src_loss_ce": ce_src, "loss_ce": ce_tgt})
+        with span("tgt_stats"):
+            with torch.no_grad():
+                _, tgt_up = glob.run(lambda x: model(x, **kw), tgt_frames)
+                ce_tgt = sac_core.cross_entropy_mean(
+                    tgt_up, glob.rows(tgt_lbls), impl=scfg.ce_impl,
+                    share=glob.share(tgt_lbls))
+            state.step += 1
+            return glob.sum({"src_loss_ce": ce_src, "loss_ce": ce_tgt})
 
     return frames_step
 
