@@ -21,7 +21,14 @@ no result line:
               VGG ABN step's source rows (``[16,640,640,19]``); then
               the CUDA kernel, the Triton kernel, the plain version and
               ``F.cross_entropy`` (a yardstick the port never calls) timed
-              in turns with CUDA events at the SAC step's shape;
+              in turns with CUDA events at the SAC step's shape; then live
+              BN's four kernels (``csrc/live_bn.cu``, bound in
+              ``ops/live_bn.py``) at the r101 ABN step's bf16 shapes
+              (layer3's bn3 with its residual, its bn1, the stem's BN):
+              each against its plain version, the sums twice bit for bit,
+              the sums of small integers equal to the plain version's (there
+              and at 4551 rows), and each and its plain version timed in
+              turns beside its bound, its bytes at the card's memory rate;
   3. agree    the SAC views step on a small input, on the card and on the
               CPU (plain kernels, held against ``dasac_tpu`` by the tests),
               2 iterations, same weights and views;
@@ -30,7 +37,8 @@ no result line:
               8 source images and 2 target groups of 4 views, random
               weights and uint8 batches made from a seed.  The kernels'
               launch counts (by kernel and by path) are set to 0 just
-              before and read just after: every launch on the bulk path.
+              before and read just after: every launch on the bulk path,
+              and no live-BN launch (its BN is frozen).
               Then 2 more steps run under torch.profiler and their device
               time is printed by kernel and by part of the step;
   5. abn_agree  the ABN frames step on a small input (shallow r101, f32,
@@ -43,7 +51,10 @@ no result line:
               0.5-2.0 from 12 source frames of 1052x1914 and 8 target
               frames of 1024x2048), 8 steps with the launch counts set to 0
               before and read after (2 ``nll_fwd`` + 1 ``nll_bwd`` a step,
-              all bulk), then 2 steps under the profiler;
+              all bulk; 6 live-BN launches a BN layer a step: ``sums`` and
+              ``apply`` in the source and in the target forward,
+              ``apply_bwd`` and ``sums_bwd`` in the backward, 624 for the
+              104 layers), then 2 steps under the profiler;
   7. handoff  the ABN state saved with the port's Checkpointer and loaded
               into a fresh SAC state (teacher not initialized, momentum
               restored), then 2 flagship SAC steps from it;
@@ -53,7 +64,8 @@ no result line:
               pixel counts and each timed call's host and device ms;
   9. infer    ``make_infer_fn`` on one 1024x2048 frame: one scale with
               full-resolution fusion (held against the argmax of the
-              probabilities), and 3 scales with flip fused at stride 8;
+              probabilities), and 3 scales with flip fused at stride 8; no
+              live-BN launch;
  10. train    the training program through its CLI
               (``dasac_tpu_torch.train.cli.main``), in this process, on a
               synthetic root written under ``build/smoke_train`` (removed
@@ -301,6 +313,8 @@ rank's cases, by path), phase 22's by timed name and CLI stage
 (``launches_optimizers``) and phase 23's by run (``launches_bench``).
 
 ``python3 chip_smoke.py --infer-mesh-only`` runs phase 18 alone;
+``--live-bn-only`` the live-BN kernels' part of phase 2, then phases 4, 6
+and 9 with their live-BN launch counts;
 ``--remat-only``, ``--step-tools-only``, ``--train-mesh-only`` and
 ``--optimizers-only`` and ``--bench-only`` build the CE kernels and run
 phase 19, 20, 21, 22 or 23 alone (several flags: those phases; phase 23
@@ -608,6 +622,192 @@ def time_kernels(ce, ce_triton, device, name):
     return out
 
 
+# the live-BN kernels' shapes, the r101 ABN step's source rows in bf16
+# channels_last: layer3's bn3 (with its residual), its bn1/bn2, the stem
+LIVE_BN_CASES = (("layer3_bn3", (ABN_SRC[0], 1024, 80, 80), True),
+                 ("layer3_bn1", (ABN_SRC[0], 256, 80, 80), False),
+                 ("stem_bn1", (ABN_SRC[0], 64, 320, 320), False))
+
+
+def live_bn_inputs(device, shape):
+    """bf16 channels_last x, residual and upstream gradient of ``shape``,
+    and f32 per-channel scale and shift, from ``SEED``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def act(mul, add):
+        t = torch.randn(shape, generator=gen, device=device) * mul + add
+        return t.bfloat16().contiguous(memory_format=torch.channels_last)
+
+    c = shape[1]
+    return (act(2.0, 0.5), act(1.0, 0.0), act(1.0, 0.0),
+            torch.rand(c, generator=gen, device=device) + 0.5,
+            torch.randn(c, generator=gen, device=device) * 0.1)
+
+
+def check_live_bn(live_bn, x, res, dy, scale, shift, residual):
+    """The four live-BN kernels against their plain versions; returns
+    kernel -> (max abs error, tolerance).  Tolerances
+    (``tests/test_torch_live_bn.py``): the sums within 1e-5 of the sum of
+    their terms' magnitudes (f32 sums of 1e5-1e6 terms in two orders);
+    ``apply`` and ``sums_bwd`` within one bf16 ulp of the plain value
+    (2^-7 relative) plus 2^-22 of the magnitude of the terms added (an FMA
+    against a multiply and an add, rounded to bf16); ``apply_bwd``'s dx
+    and dresidual equal, its sums as the sums.  Each error is reported
+    against its tolerance, where the tolerance is the largest."""
+    import torch
+
+    c = x.shape[1]
+    r = res if residual else None
+    xf = x.float()
+    out = {}
+
+    def worst(err, tol, name):
+        ratio = (err / tol).max().item() if tol.numel() else 0.0
+        need(ratio <= 1.0, "live BN %s disagrees with its plain version: "
+             "%.3g of its tolerance" % (name, ratio))
+        out[name] = (err.max().item(), tol.max().item())
+
+    mag = torch.cat([xf.abs().sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2,
+                                                                    3))])
+    worst((live_bn.sums(x) - live_bn.sums_plain(x)).abs(), 1e-5 * mag,
+          "live_bn_sums")
+    g = torch.randn(2 * c, device=x.device,
+                    generator=torch.Generator(device=x.device).manual_seed(1))
+    gs, gq = (v[:, None, None] for v in g.split(c))
+    want = live_bn.sums_bwd_plain(x, g).float()
+    worst((live_bn.sums_bwd(x, g).float() - want).abs(),
+          want.abs() * 2.0 ** -7 + (gs.abs() + (2 * gq * xf).abs())
+          * 2.0 ** -22, "live_bn_sums_bwd")
+    y = live_bn.apply(x, scale, shift, r, True)
+    want = live_bn.apply_plain(x, scale, shift, r, True)
+    terms = (xf * scale[:, None, None]).abs() + shift.abs()[:, None, None]
+    if residual:
+        terms = terms + res.float().abs()
+    worst((y.float() - want.float()).abs(),
+          want.float().abs() * 2.0 ** -7 + terms * 2.0 ** -22,
+          "live_bn_apply")
+    dx, dres, sums = live_bn.apply_bwd(dy, x, want, scale, True, residual)
+    dx0, dres0, sums0 = live_bn.apply_bwd_plain(dy, x, want, scale, True,
+                                                residual)
+    need(torch.equal(dx, dx0) and (dres is None or torch.equal(dres, dres0)),
+         "live BN apply_bwd: dx or dresidual differ from the plain version")
+    d = dy.float().abs()
+    worst((sums - sums0).abs(), 1e-5 * torch.cat([
+        d.sum(dim=(0, 2, 3)), (d * xf.abs()).sum(dim=(0, 2, 3))]),
+          "live_bn_apply_bwd")
+    torch.cuda.synchronize()
+    return out
+
+
+def check_live_bn_exact(live_bn, device, shape):
+    """bf16 integers in [-3, 3]: every partial sum of x, x*x, the masked
+    upstream gradient and it times x is an integer under 2^24, exact in f32
+    in any order, so ``sums`` and ``apply_bwd``'s sums must equal their
+    plain versions bit for bit (a row dropped or taken twice shows)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x, dy = (torch.randint(-3, 4, shape, generator=gen, device=device)
+             .bfloat16().contiguous(memory_format=torch.channels_last)
+             for _ in range(2))
+    need(torch.equal(live_bn.sums(x), live_bn.sums_plain(x)),
+         "live BN sums of small integers differ from the plain version's "
+         "at %s" % (shape,))
+    scale = torch.ones(shape[1], device=device)
+    y = live_bn.apply_plain(x, scale, scale - 1.0, None, True)
+    need(torch.equal(live_bn.apply_bwd(dy, x, y, scale, True, False)[2],
+                     live_bn.apply_bwd_plain(dy, x, y, scale, True,
+                                             False)[2]),
+         "live BN apply_bwd's sums of small integers differ from the plain "
+         "version's at %s" % (shape,))
+
+
+def run_live_bn(ce, ce_triton, device, card):
+    """Live BN's kernels (``ops/live_bn.py``, ``csrc/live_bn.cu``) at the
+    r101 ABN step's shapes: each against its plain version, then it and
+    its plain version timed in turns, beside its bound (its bytes at the
+    card's memory rate).  ``apply`` and ``apply_bwd`` run with the ReLU,
+    and with the residual at bn3's shape.  Sums are checked to repeat bit
+    for bit.  Returns the rows."""
+    import torch
+
+    from dasac_tpu_torch.ops import cuda_build, live_bn
+
+    name = torch.cuda.get_device_name(device)
+    rate = mem_rate(name)
+    t0 = time.perf_counter()
+    live_bn._library(device)
+    log("build: %s in %.1f s" % (cuda_build.library_path(
+        live_bn.SOURCE).name, time.perf_counter() - t0))
+    for r in ptxas_summary(cuda_build.build_log(live_bn.SOURCE)):
+        log("ptxas %s" % json.dumps(r))
+    # ragged: 4551 rows, a multiple of no block's or grid's rows
+    for shape in [s for _, s, _ in LIVE_BN_CASES] + [(3, 256, 37, 41)]:
+        check_live_bn_exact(live_bn, device, shape)
+    rows = []
+    for case, shape, residual in LIVE_BN_CASES:
+        x, res, dy, scale, shift = live_bn_inputs(device, shape)
+        r = res if residual else None
+        y = live_bn.apply(x, scale, shift, r, True)
+        errs = check_live_bn(live_bn, x, res, dy, scale, shift, residual)
+        need(torch.equal(live_bn.sums(x), live_bn.sums(x)),
+             "live BN sums differ between two calls")
+        g = torch.randn(2 * shape[1], device=device)
+        elems = x.numel()
+        # bytes moved: each bf16 tensor read or written once
+        moved = {"live_bn_sums": 2, "live_bn_sums_bwd": 4,
+                 "live_bn_apply": 6 if residual else 4,
+                 "live_bn_apply_bwd": 10 if residual else 8}
+        kernels = {
+            "live_bn_sums": (lambda: live_bn.sums(x),
+                             lambda: live_bn.sums_plain(x)),
+            "live_bn_sums_bwd": (lambda: live_bn.sums_bwd(x, g),
+                                 lambda: live_bn.sums_bwd_plain(x, g)),
+            "live_bn_apply": (lambda: live_bn.apply(x, scale, shift, r, True),
+                              lambda: live_bn.apply_plain(x, scale, shift,
+                                                          r, True)),
+            "live_bn_apply_bwd": (
+                lambda: live_bn.apply_bwd(dy, x, y, scale, True, residual),
+                lambda: live_bn.apply_bwd_plain(dy, x, y, scale, True,
+                                                residual)),
+        }
+        for k, (fn, plain) in kernels.items():
+            t = in_turns(dict(ms=fn, plain_ms=plain))
+            bound = moved[k] * elems / rate * 1e3
+            row = dict(phase="live_bn", kernel=k, case=case,
+                       shape=list(shape), residual=residual, relu=True,
+                       ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bound,
+                       bound_share=bound / t["ms"],
+                       bytes=moved[k] * elems, max_abs_err=errs[k][0],
+                       tol=errs[k][1], card=card)
+            rows.append(row)
+            log("kernel time  %-17s %-10s %.4f ms (%.0f%% of bound %.4f), "
+                "plain %.4f, max_abs_err %.3e"
+                % (k, case, row["ms"], 100 * row["bound_share"], bound,
+                   row["plain_ms"], row["max_abs_err"]))
+        del x, res, dy, y
+        torch.cuda.empty_cache()
+    log("live_bn: %s" % json.dumps(rows))
+    return dict(live_bn.LAUNCHES)
+
+
+def run_live_bn_paths(ce, ce_triton, device, card):
+    """``--live-bn-only``: phase 2's live-BN part, then phases 4, 6 and 9,
+    each of which checks its live-BN launches (none in the SAC step and in
+    inference, 6 a layer in an ABN step).  Returns the ABN step's."""
+    import torch
+
+    run_live_bn(ce, ce_triton, device, card)
+    torch.cuda.empty_cache()
+    run_slice(ce, ce_triton, device, card)
+    torch.cuda.empty_cache()
+    state = run_abn(ce, ce_triton, device, card)[0]
+    run_infer(state, device, card)
+    return live_bn_want(state.model, N_STEPS)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: card against CPU on a small input
 # ---------------------------------------------------------------------------
@@ -838,7 +1038,9 @@ def sac_batch(device):
 
 
 def reset_counts(ce, ce_triton):
-    for counts in (ce.LAUNCHES, ce_triton.LAUNCHES):
+    from dasac_tpu_torch.ops import live_bn
+
+    for counts in (ce.LAUNCHES, ce_triton.LAUNCHES, live_bn.LAUNCHES):
         for k in counts:
             counts[k] = 0
     for by_path in ce.PATH_LAUNCHES.values():
@@ -846,14 +1048,32 @@ def reset_counts(ce, ce_triton):
             by_path[p] = 0
 
 
-def read_counts(ce, ce_triton, want):
+def live_bn_want(model, steps, live=True):
+    """The live-BN launches (kernel -> launches) of ``steps`` ABN steps on
+    ``model`` (``live``): each BN layer's ``sums`` and ``apply`` in the
+    source forward and in the target forward, its ``apply_bwd`` and
+    ``sums_bwd`` in the backward; none where BN is frozen."""
+    from dasac_tpu_torch.nn.layers import SyncBatchNorm
+
+    n = steps * live * sum(isinstance(m, SyncBatchNorm)
+                           for m in model.modules())
+    return {"live_bn_sums": 2 * n, "live_bn_sums_bwd": n,
+            "live_bn_apply": 2 * n, "live_bn_apply_bwd": n}
+
+
+def read_counts(ce, ce_triton, want, live_bn_want=None):
     """The launch counts since ``reset_counts``; fails unless they are
     ``want`` (kernel -> launches), every one on the bulk path, and no
-    Triton launch."""
+    Triton launch, and, given ``live_bn_want``, unless the live-BN
+    launches are those."""
+    from dasac_tpu_torch.ops import live_bn
+
     launches = dict(ce.LAUNCHES)
     paths = {k: dict(v) for k, v in ce.PATH_LAUNCHES.items()}
     triton_launches = dict(ce_triton.LAUNCHES)
     need(launches == want, "CE launches %s, want %s" % (launches, want))
+    need(live_bn_want is None or live_bn.LAUNCHES == live_bn_want,
+         "live-BN launches %s, want %s" % (live_bn.LAUNCHES, live_bn_want))
     need(paths == {k: {"bulk": v, "strided": 0} for k, v in want.items()},
          "CE launches by path %s: want all on the bulk path" % paths)
     need(not any(triton_launches.values()),
@@ -893,7 +1113,8 @@ def run_slice(ce, ce_triton, device, card):
         rows.append(row)
         log("slice step %d: %.1f ms %s" % (i, times[-1], json.dumps(row)))
     launches, paths, triton_launches = read_counts(
-        ce, ce_triton, {"nll_fwd": 2 * N_STEPS, "nll_bwd": 2 * N_STEPS})
+        ce, ce_triton, {"nll_fwd": 2 * N_STEPS, "nll_bwd": 2 * N_STEPS},
+        live_bn_want(model, N_STEPS, live=False))
     need(state.step == N_STEPS and state.slow_init == 1,
          "step %d slow_init %d" % (state.step, state.slow_init))
     need(any(r["teacher_diff"] > 0 for r in rows[1:]),
@@ -1088,8 +1309,12 @@ def run_abn(ce, ce_triton, device, card):
             need(math.isfinite(v), "abn step %d: %s = %r" % (i, k, v))
         rows.append(row)
         log("abn step %d: %.1f ms %s" % (i, times[-1], json.dumps(row)))
+    live = live_bn_want(model, N_STEPS)
+    need(live["live_bn_apply_bwd"] == 104 * N_STEPS,
+         "the flagship r101 has %d BN layers, not 104"
+         % (live["live_bn_apply_bwd"] // N_STEPS))
     launches, paths, triton_launches = read_counts(
-        ce, ce_triton, {"nll_fwd": 2 * N_STEPS, "nll_bwd": N_STEPS})
+        ce, ce_triton, {"nll_fwd": 2 * N_STEPS, "nll_bwd": N_STEPS}, live)
     peak = torch.cuda.max_memory_allocated()
     moved = sum(not torch.equal(v, stats0[k]) for k, v in
                 model.named_buffers() if k in stats0)
@@ -1110,7 +1335,8 @@ def run_abn(ce, ce_triton, device, card):
         phase="abn", card=card, steps=N_STEPS, warmup=WARMUP_STEPS,
         step_ms=times, step_ms_median=statistics.median(times[WARMUP_STEPS:]),
         max_memory_allocated=peak, losses=rows, ce_launches=launches,
-        ce_launches_by_path=paths, bn_layers_moved=moved,
+        ce_launches_by_path=paths, live_bn_launches=live,
+        bn_layers_moved=moved,
         batch=dict(source=list(ABN_SRC), target=list(ABN_TGT),
                    crop=list(scfg.crop_hw), scale=list(scfg.src_scale)))
     log("abn: %s" % json.dumps(out))
@@ -1323,9 +1549,11 @@ def run_infer(state, device, card):
     import torch
 
     from dasac_tpu_torch.infer import engine
+    from dasac_tpu_torch.ops import live_bn
 
     cfg = abn_step_config()
     rng = np.random.RandomState(SEED + 3)
+    live_before = dict(live_bn.LAUNCHES)
     image = torch.from_numpy(
         rng.randint(0, 256, (1, *INFER_HW, 3), dtype=np.uint8)).to(device)
     settings = {
@@ -1353,6 +1581,8 @@ def run_infer(state, device, card):
                  "probabilities away from a tie")
             out[name]["argmax_vs_probs_mismatch"] = int(differ.sum())
             del probs, differ
+    need(live_bn.LAUNCHES == live_before, "inference launched live-BN "
+         "kernels: %s after %s" % (live_bn.LAUNCHES, live_before))
     log("infer: %s" % json.dumps(out))
     return out
 
@@ -4965,6 +5195,11 @@ def main(argv=()):
         help="instead of the phases, build the CE kernels and run phase 22 "
              "(optax's optimizers by name) alone")
     parser.add_argument(
+        "--live-bn-only", action="store_true",
+        help="instead of the phases, run the live-BN kernels' part of "
+             "phase 2, then phases 4, 6 and 9 with their live-BN launch "
+             "counts")
+    parser.add_argument(
         "--bench-only", action="store_true",
         help="instead of the phases, build the CE kernels and run phase 23 "
              "(the port's bench) alone")
@@ -4996,12 +5231,14 @@ def main(argv=()):
         run_infer_mesh(ce, ce_triton, device, card)
         log("infer_mesh: %.1f s" % (time.perf_counter() - t_start))
         return 0
-    if (args.remat_only or args.step_tools_only or args.train_mesh_only
-            or args.optimizers_only or args.bench_only):
+    if (args.live_bn_only or args.remat_only or args.step_tools_only
+            or args.train_mesh_only or args.optimizers_only
+            or args.bench_only):
         global OPTAX_TIMED
         OPTAX_TIMED = None  # phase 22 alone times every name's SAC step
         build_cuda(ce)
-        for flag, phase in ((args.remat_only, run_remat_opt),
+        for flag, phase in ((args.live_bn_only, run_live_bn_paths),
+                            (args.remat_only, run_remat_opt),
                             (args.step_tools_only, run_step_tools),
                             (args.train_mesh_only, run_train_mesh),
                             (args.optimizers_only, run_optimizers),
@@ -5033,6 +5270,7 @@ def main(argv=()):
     triton_checks = check_kernels(ce_triton, device)
     timing = time_kernels(ce, ce_triton, device, name)
     torch.cuda.empty_cache()
+    run_live_bn(ce, ce_triton, device, card)
     lap("kernels")
     check_agreement(device, card=card)
     lap("agree")

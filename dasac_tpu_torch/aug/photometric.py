@@ -10,6 +10,9 @@ drew.  Images are float32 RGB in [0, 1], layout [B, H, W, 3].
 import torch
 
 _GRAY = (0.299, 0.587, 0.114)
+# (values, dtype, device) -> the tensor, copied there once: a copy from the
+# host's memory waits until the device has run all it was given
+_CONSTANTS = {}
 
 
 def _uniform(generator, shape, lo=0.0, hi=1.0, device=None):
@@ -17,8 +20,17 @@ def _uniform(generator, shape, lo=0.0, hi=1.0, device=None):
     return lo + u * (hi - lo)
 
 
+def _constant(values, dtype, device):
+    key = (tuple(float(v) for v in values), dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype,
+                                           device=device)
+    return t
+
+
 def _gray(img):
-    return img @ torch.tensor(_GRAY, dtype=img.dtype, device=img.device)
+    return img @ _constant(_GRAY, img.dtype, img.device)
 
 
 def _grayscale(img):
@@ -205,6 +217,6 @@ def gaussian_blur_sigma(img, sigma, taps=_BLUR_TAPS, valid=None):
 
 def normalize(img, mean, std):
     """(img - mean) / std with broadcast constants."""
-    mean = torch.tensor(mean, dtype=torch.float32, device=img.device)
-    std = torch.tensor(std, dtype=torch.float32, device=img.device)
+    mean = _constant(mean, torch.float32, img.device)
+    std = _constant(std, torch.float32, img.device)
     return (img.float() - mean) / std

@@ -13,7 +13,9 @@ BN modes:
   * batch stats (ABN baseline): normalize with the batch statistics and
     update the running ones with torch's conventions; with a process
     group, the statistics are those of the global batch (one collective a
-    layer in the forward and one in the backward).
+    layer in the forward and one in the backward).  The passes over the
+    activation (the sums, the apply with its residual and ReLU, their
+    backwards) are ``ops/live_bn.py``'s kernels on the card.
 
 Remat (:func:`checkpointed`, ``TPU.REMAT``): a model runs a block or a
 chunk of layers under ``torch.utils.checkpoint``, which replays its forward
@@ -37,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from dasac_tpu_torch.core import dist
 from dasac_tpu_torch.nn import spatial
+from dasac_tpu_torch.ops import live_bn
 
 
 class Conv2d(nn.Module):
@@ -168,50 +171,54 @@ class SyncBatchNorm(nn.Module):
             unbiased, alpha=self.momentum)
         self.num_batches_tracked.add_(1)
 
-    def forward(self, x, use_running_average):
-        frame = spatial.current()
+    def forward(self, x, use_running_average, residual=None, relu=False):
+        """``relu?(bn(x) [+ residual])``.  Frozen, the bf16 multiply-add,
+        then ``torch.relu``, each its own op, and no residual (a frozen
+        bottleneck adds its own after its projection, as it always has);
+        live, the passes over the activation are ``ops/live_bn``'s kernels
+        (their plain versions on the CPU) and the per-channel chain between
+        them stays in autograd."""
         if use_running_average:
-            mean, var = self.running_mean, self.running_var
-        elif frame is not None:
-            if self.group is None:
-                raise RuntimeError(
-                    "batch statistics over a height-sharded frame need the "
-                    "BN layers built with the world's group")
-            xf = x.float()
-            c = x.shape[1]
-            local = torch.cat([xf.sum(dim=(0, 2, 3)),
-                               (xf * xf).sum(dim=(0, 2, 3)),
-                               xf.new_full((1,), x.numel() // c)])
+            if residual is not None:
+                raise ValueError("frozen BN takes no residual")
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            shift = self.bias - self.running_mean * inv
+            y = (x.to(self.dtype) * inv.to(self.dtype)[:, None, None]
+                 + shift.to(self.dtype)[:, None, None])
+            return torch.relu(y) if relu else y
+
+        frame = spatial.current()
+        if frame is not None and self.group is None:
+            raise RuntimeError(
+                "batch statistics over a height-sharded frame need the BN "
+                "layers built with the world's group")
+        x = live_bn.channels_last(x)
+        c = x.shape[1]
+        sums = live_bn.bn_sums(x)
+        if frame is not None:
+            local = torch.cat([sums, sums.new_full((1,), x.numel() // c)])
             stats = frame.reduced(self, lambda known: dist.AllReduceSum.apply(
                 local, self.group, known))
             count = stats[-1:]   # a tensor: no wait for the device
             mean, mean_sq = (stats[:-1] / count).split(c)
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
-            if not _RECOMPUTING.get():
-                self._update_running(mean, var, count)
         else:
-            xf = x.float()
-            dims = (0, 2, 3)
-            mean = xf.mean(dim=dims)
-            mean_sq = (xf * xf).mean(dim=dims)
-            count = x.numel() // x.shape[1]
+            count = x.numel() // c
+            mean, mean_sq = (sums / count).split(c)
             if self.group is not None:
                 world = self.group.size()
                 stats = dist.AllReduceSum.apply(
                     torch.cat([mean, mean_sq]), self.group) / world
-                mean, mean_sq = stats.split(mean.shape[0])
+                mean, mean_sq = stats.split(c)
                 count *= world
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
-            if not _RECOMPUTING.get():
-                self._update_running(mean, var, count)
-
-        # fold (mean, var, scale, bias) into one per-channel multiply-add
-        # applied in the compute dtype: the f32 coefficients are exact, the
-        # per-pixel arithmetic stays in the activations' dtype
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        if not _RECOMPUTING.get():
+            self._update_running(mean, var, count)
+        # the f32 per-channel coefficients, used unrounded by the apply
         inv = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * inv
-        return (x.to(self.dtype) * inv.to(self.dtype)[:, None, None]
-                + shift.to(self.dtype)[:, None, None])
+        if residual is not None:
+            residual = live_bn.channels_last(residual.to(self.dtype))
+        return live_bn.bn_apply(x.to(self.dtype), inv, shift, residual, relu)
 
 
 # (n, d): a forward sees slice d of n equal slices of its global batch

@@ -77,13 +77,19 @@ class Bottleneck(nn.Module):
 
     def forward(self, x, update_stats):
         frozen = not update_stats
-        out = torch.relu(self.bn1(self.conv1(x), frozen))
-        out = torch.relu(self.bn2(self.conv2(out), frozen))
-        out = self.bn3(self.conv3(out), frozen)
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample[1](self.downsample[0](x), frozen)
-        return torch.relu(out + residual.to(out.dtype))
+        out = self.bn1(self.conv1(x), frozen, relu=True)
+        out = self.bn2(self.conv2(out), frozen, relu=True)
+        out = self.conv3(out)
+        if frozen:   # bn3, the projection, the add and the ReLU, in turn
+            out = self.bn3(out, True)
+            return torch.relu(out + self._residual(x, True).to(out.dtype))
+        return self.bn3(out, False, residual=self._residual(x, False),
+                        relu=True)
+
+    def _residual(self, x, frozen):
+        if self.downsample is None:
+            return x
+        return self.downsample[1](self.downsample[0](x), frozen)
 
 
 class ASPP(nn.Module):
@@ -141,7 +147,7 @@ class ResNet101Backbone(nn.Module):
         self.out_channels = in_planes
 
     def _stem(self, x, update_stats):
-        x = torch.relu(self.bn1(self.conv1(x), not update_stats))
+        x = self.bn1(self.conv1(x), not update_stats, relu=True)
         return max_pool_ceil(x, window=3, stride=2, padding=1)
 
     def forward(self, x, update_stats):

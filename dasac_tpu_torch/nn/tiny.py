@@ -34,8 +34,8 @@ class TinySeg(nn.Module):
         """``upsample=False`` returns ``(logits, None)``."""
         h, w = spatial.frame_hw(x)
         y = x.permute(0, 3, 1, 2)
-        y = torch.relu(self.bn_a(self.conv_a(y), not update_stats))
-        y = torch.relu(self.bn_b(self.conv_b(y), not update_stats))
+        y = self.bn_a(self.conv_a(y), not update_stats, relu=True)
+        y = self.bn_b(self.conv_b(y), not update_stats, relu=True)
         if train:
             # Dropout(0.1) with one mask value per (image, channel), as the
             # flax broadcast_dims=(1, 2) gives

@@ -115,7 +115,7 @@ class VGGStage(nn.Module):
             elif kind == "conv":
                 x = getattr(self, name)(x)
             else:
-                x = torch.relu(getattr(self, name)(x, not update_stats))
+                x = getattr(self, name)(x, not update_stats, relu=True)
         return x
 
 
@@ -203,9 +203,9 @@ class VGG16FCN8s(nn.Module):
         pool4 = self.block2(pool3, update_stats)
         pool5 = self.block3(pool4, update_stats)
         head = self.vgg_head
-        s = torch.relu(head["1"](head["0"](pool5), frozen))
+        s = head["1"](head["0"](pool5), frozen, relu=True)
         s = self._dropout(s, train, generator)
-        s = torch.relu(head["5"](head["4"](s), frozen))
+        s = head["5"](head["4"](s), frozen, relu=True)
         s = self._dropout(s, train, generator)
         s = head["8"](s)
         for score, skip in ((self.score_pool4, pool4),
