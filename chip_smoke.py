@@ -295,6 +295,23 @@ no result line:
               1% of a count by forward hooks (``hook_conv_flops``), the
               resize's products under 1% of them; and phase 14's r101
               batch-1 ``bench_infer`` record (``mfu``, ``hbm_util``);
+ 24. segformer SegFormer-B5 (``nn/segformer.py``) in bf16 through
+              ``make_sac_step`` at the flagship's sizes, from one start:
+              4 steps with the blocks' branches eager, each making exactly
+              156 attention calls (52 blocks x teacher, source and target)
+              over 24 x 316,669,952 query-key pairs
+              (``segformer.ATTENTION``), finite losses and parameters, step
+              ms and peak memory, one step profiled: every attention call
+              on a fused SDPA backend (flash, memory-efficient or cuDNN)
+              and none on the math one; one eager step again (two runs'
+              difference); 4 steps from CUDA graphs (``nn/graphs.py``): the
+              same counts, 2 + 2 CE launches a step all bulk, two passes of
+              208 graphed branches (teacher, student), the first step's
+              change of every parameter within 4x two eager runs'
+              difference (or 2%) of eager's, step ms, peak memory and the
+              ``attention``, ``mix_ffn`` and ``decode_head`` spans' ms;
+              then 2 steps under ``remat block`` (eager), whose replays add
+              104 calls;
 Each phase prints one JSON line with the card's name and power limit.
 Phases 10, 13, 14, 15, 17 and 18 call each entry point with cuDNN autotuning
 off, as a new process starts, and check that the entry point turned it on.
@@ -316,9 +333,10 @@ rank's cases, by path), phase 22's by timed name and CLI stage
 ``--live-bn-only`` the live-BN kernels' part of phase 2, then phases 4, 6
 and 9 with their live-BN launch counts;
 ``--remat-only``, ``--step-tools-only``, ``--train-mesh-only`` and
-``--optimizers-only`` and ``--bench-only`` build the CE kernels and run
-phase 19, 20, 21, 22 or 23 alone (several flags: those phases; phase 23
-alone writes the bench's own corpus under ``build/smoke_bench``).
+``--optimizers-only``, ``--bench-only`` and ``--segformer-only`` build the
+CE kernels and run phase 19, 20, 21, 22, 23 or 24 alone (several flags:
+those phases; phase 23 alone writes the bench's own corpus under
+``build/smoke_bench``).
 
 ``python3 chip_smoke.py --abn-lr-witness`` runs none of these phases: it
 runs the flagship ABN step for 8 steps at 1, 0.1, 0.01 and 0.001 times
@@ -4991,6 +5009,208 @@ def run_optimizers(ce, ce_triton, device, card, keep_root=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 24: SegFormer-B5's SAC step
+
+SEGFORMER_STEPS = 4
+# attention calls a SAC step: 52 blocks in the teacher, source and target
+# forwards; query-key pairs a frame: 3x32768x512 + 12x8192x512 +
+# 200x2048x512 + 24x512x512 at 512x1024, over 8 + 8 + 8 frames
+SEGFORMER_CALLS = 3 * 52
+SEGFORMER_PAIRS = 24 * (3 * 32768 * 512 + 12 * 8192 * 512
+                        + 200 * 2048 * 512 + 24 * 512 * 512)
+SDPA_FUSED = ("aten::_scaled_dot_product_flash_attention",
+              "aten::_scaled_dot_product_efficient_attention",
+              "aten::_scaled_dot_product_cudnn_attention")
+SDPA_MATH = "aten::_scaled_dot_product_attention_math"
+
+
+def segformer_state(device, remat="none"):
+    """SegFormer-B5 in bf16 under ``remat``, random weights from ``SEED``,
+    its SGD and train state."""
+    import torch
+
+    from dasac_tpu_torch.core.state import create_train_state
+    from dasac_tpu_torch.nn.factory import build_model
+    from dasac_tpu_torch.train import optim
+
+    model = build_model("segformer_b5", C, dtype=torch.bfloat16, remat=remat,
+                        device=device,
+                        generator=torch.Generator().manual_seed(SEED))
+    return create_train_state(model, optim.build_optimizer(
+        model_cfg(), "segformer_b5", model), C, device=device)
+
+
+def _attention_step(step, state, batch, gen):
+    """One step; returns (ms, metrics, attention calls, pairs)."""
+    import torch
+
+    from dasac_tpu_torch.nn import segformer
+
+    calls0, pairs0 = (segformer.ATTENTION["calls"],
+                      segformer.ATTENTION["pairs"])
+    t0 = time.perf_counter()
+    m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3, m,
+            segformer.ATTENTION["calls"] - calls0,
+            segformer.ATTENTION["pairs"] - pairs0)
+
+
+def _segformer_steps(device, graphed, n, remat="none"):
+    """``n`` SAC steps of a fresh SegFormer-B5 state (weights from
+    ``SEED``, the same batch and generator seed every time), its blocks'
+    branches from CUDA graphs or eager (``graphs.Passes(0)``); returns
+    (step ms, losses, attention calls and pairs a step, the parameters'
+    change over the first step on the host, peak bytes, state, step)."""
+    import torch
+
+    from dasac_tpu_torch.nn import graphs
+    from dasac_tpu_torch.train import steps
+
+    torch.cuda.reset_peak_memory_stats()
+    state = segformer_state(device, remat)
+    if not graphed:
+        state.model.backbone.graph_passes = graphs.Passes(0)
+    step = steps.make_sac_step(sac_step_config(), device=device)
+    batch = sac_batch(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p0 = {k: p.detach().clone() for k, p in
+          state.model.named_parameters()}
+    times, losses, counts, d1 = [], [], [], None
+    for i in range(n):
+        ms, m, calls, pairs = _attention_step(step, state, batch, gen)
+        times.append(ms)
+        row = {k: float(m[k]) for k in ("src_loss_ce", "self_ce",
+                                        "teacher_diff", "pseudo_cover")}
+        need(all(math.isfinite(v) for v in row.values()),
+             "segformer step %d: %s" % (i, row))
+        losses.append(row)
+        counts.append((calls, pairs))
+        if i == 0:
+            d1 = {k: (p.detach() - p0[k]).float().cpu() for k, p in
+                  state.model.named_parameters()}
+            del p0
+        log("segformer %s step %d: %.1f ms %s" % (
+            "graphs" if graphed else "eager", i, ms, json.dumps(row)))
+    nonfinite = [k for k, p in state.model.named_parameters()
+                 if not torch.isfinite(p).all()]
+    need(not nonfinite, "segformer: non-finite params %s" % nonfinite[:4])
+    return (times, losses, counts, d1, torch.cuda.max_memory_allocated(),
+            state, step, batch, gen)
+
+
+def _rel_change_gap(a, b):
+    """||a - b|| / ||b|| over every leaf of two parameter changes."""
+    num = sum(float((a[k] - b[k]).double().pow(2).sum()) for k in b)
+    den = sum(float(b[k].double().pow(2).sum()) for k in b)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _free_segformer():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_segformer(ce, ce_triton, device, card):
+    """Phase 24; returns the CE launches of its graphed steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dasac_tpu_torch.utils import spans
+
+    torch.backends.cudnn.benchmark = True
+    out = dict(card=card, steps=SEGFORMER_STEPS,
+               attention_calls=SEGFORMER_CALLS,
+               attention_pairs=SEGFORMER_PAIRS)
+    # eager: the step of the branches' own operators; one step profiled
+    # for the attention's backend
+    times, losses, counts, d_eager, peak, state, step, batch, gen = (
+        _segformer_steps(device, False, SEGFORMER_STEPS))
+    need(all(c == (SEGFORMER_CALLS, SEGFORMER_PAIRS) for c in counts),
+         "segformer eager: attention calls and pairs a step %s, want %d "
+         "over %d" % (counts, SEGFORMER_CALLS, SEGFORMER_PAIRS))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _attention_step(step, state, batch, gen)
+    ops = {}
+    for e in prof.events():
+        if e.name in SDPA_FUSED or e.name == SDPA_MATH:
+            ops[e.name] = ops.get(e.name, 0) + 1
+    need(sum(ops.get(n, 0) for n in SDPA_FUSED) == SEGFORMER_CALLS
+         and SDPA_MATH not in ops,
+         "segformer: SDPA forwards by backend %s, want %d fused and no math"
+         % (ops, SEGFORMER_CALLS))
+    out["eager"] = dict(step_ms=times,
+                        step_ms_median=statistics.median(times[1:]),
+                        losses=losses, max_memory_allocated=peak,
+                        sdpa_ops=ops)
+    del state, step
+    _free_segformer()
+    # eager again, one step: the floor of two runs' difference
+    _, _, _, d_again, _, state, step, _, _ = _segformer_steps(device, False,
+                                                             1)
+    del state, step
+    _free_segformer()
+    eager_gap = _rel_change_gap(d_again, d_eager)
+    del d_again
+
+    # graphed: the same steps from the same start
+    reset_counts(ce, ce_triton)
+    times, glosses, counts, d_graph, peak, state, step, batch, gen = (
+        _segformer_steps(device, True, SEGFORMER_STEPS))
+    launches, paths, _ = read_counts(
+        ce, ce_triton, {"nll_fwd": 2 * SEGFORMER_STEPS,
+                        "nll_bwd": 2 * SEGFORMER_STEPS})
+    need(all(c == (SEGFORMER_CALLS, SEGFORMER_PAIRS) for c in counts),
+         "segformer graphs: attention calls and pairs a step %s, want %d "
+         "over %d" % (counts, SEGFORMER_CALLS, SEGFORMER_PAIRS))
+    passes = state.model.backbone.graph_passes.passes
+    branches = sum(len(p.branches) for p in passes.values())
+    need(len(passes) == 2 and branches == 4 * 52,
+         "segformer graphs: %d passes, %d branches graphed, want 2 (teacher,"
+         " student) and 208" % (len(passes), branches))
+    graph_gap = _rel_change_gap(d_graph, d_eager)
+    loss_gap = max(abs(a["src_loss_ce"] - b["src_loss_ce"])
+                   / abs(b["src_loss_ce"]) for a, b in zip(glosses, losses))
+    need(graph_gap <= max(4 * eager_gap, 0.02),
+         "segformer graphs: the first step's change differs from eager's by"
+         " %.3g, two eager runs by %.3g" % (graph_gap, eager_gap))
+    spans.reset()
+    with spans.recording():
+        _attention_step(step, state, batch, gen)
+    totals = spans.totals()
+    spans.reset()
+    out["graphs"] = dict(
+        step_ms=times, step_ms_median=statistics.median(times[1:]),
+        img_s=FLAGSHIP[0] / (statistics.median(times[1:]) / 1e3),
+        losses=glosses, max_memory_allocated=peak,
+        change_gap_to_eager=graph_gap, eager_change_gap=eager_gap,
+        src_loss_gap=loss_gap,
+        span_stream_ms={k: totals[k].stream_ms for k in (
+            "attention", "mix_ffn", "decode_head")},
+        span_host_ms={k: totals[k].host_ms for k in (
+            "attention", "mix_ffn", "decode_head")},
+        ce_launches=launches, ce_launches_by_path=paths)
+    del state, step
+    _free_segformer()
+
+    # remat block: eager, its replays add 104 calls a step
+    times, _, counts, _, peak, state, step, _, _ = _segformer_steps(
+        device, True, 2, remat="block")
+    need(all(c[0] == SEGFORMER_CALLS + 2 * 52 for c in counts),
+         "segformer remat block: %s attention calls a step, want %d"
+         % ([c[0] for c in counts], SEGFORMER_CALLS + 2 * 52))
+    out["remat_block"] = dict(step_ms=times[1], max_memory_allocated=peak)
+    del state, step
+    _free_segformer()
+    log("segformer: %s" % json.dumps(out))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 23: the port's bench (tools/bench.py)
 # ---------------------------------------------------------------------------
 
@@ -5203,6 +5423,10 @@ def main(argv=()):
         "--bench-only", action="store_true",
         help="instead of the phases, build the CE kernels and run phase 23 "
              "(the port's bench) alone")
+    parser.add_argument(
+        "--segformer-only", action="store_true",
+        help="instead of the phases, build the CE kernels and run phase 24 "
+             "(SegFormer-B5's SAC step) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5233,7 +5457,7 @@ def main(argv=()):
         return 0
     if (args.live_bn_only or args.remat_only or args.step_tools_only
             or args.train_mesh_only or args.optimizers_only
-            or args.bench_only):
+            or args.bench_only or args.segformer_only):
         global OPTAX_TIMED
         OPTAX_TIMED = None  # phase 22 alone times every name's SAC step
         build_cuda(ce)
@@ -5242,7 +5466,8 @@ def main(argv=()):
                             (args.step_tools_only, run_step_tools),
                             (args.train_mesh_only, run_train_mesh),
                             (args.optimizers_only, run_optimizers),
-                            (args.bench_only, run_bench)):
+                            (args.bench_only, run_bench),
+                            (args.segformer_only, run_segformer)):
             if flag:
                 t0 = time.perf_counter()
                 log("%s launches: %s" % (phase.__name__, json.dumps(
@@ -5325,6 +5550,8 @@ def main(argv=()):
     bench_launches = run_bench(ce, ce_triton, device, card, root=BENCH_ROOT,
                                bench_infer_rec=bench_infer_recs[0])
     lap("bench")
+    segformer_launches = run_segformer(ce, ce_triton, device, card)
+    lap("segformer")
 
     replaces = {"nll_fwd": "dasac_tpu/ops/ce.py:49",
                 "nll_bwd": "dasac_tpu/ops/ce.py:60"}
@@ -5410,6 +5637,9 @@ def main(argv=()):
             # the bench (phase 23), by run
             row["launches_bench"] = {run: (got[k] if cuda else 0)
                                      for run, got in bench_launches.items()}
+            # SegFormer-B5's SAC steps (phase 24)
+            row["launches_segformer"] = (segformer_launches[k] if cuda
+                                         else 0)
             # the VGG steps (phase 12), by arch and step
             row["launches_vgg"] = {
                 arch: {kind: (got[k] if route == "cuda" else 0)

@@ -7,7 +7,9 @@
   * ceil-mode max pooling, padded with -inf to the extent the JAX version
     computes, and VGG's plain floor-mode 2x2 max pooling;
   * half-pixel linear resize, antialiased when it shrinks (the counterpart
-    of ``jax.image.resize(..., "linear")``).
+    of ``jax.image.resize(..., "linear")``), and the plain half-pixel
+    bilinear resize of ``F.interpolate(..., align_corners=False)`` that
+    SegFormer's head upsamples with.
 
 Under a height-sharded frame (``nn/spatial.py``) the resize and the pools
 compute this rank's output rows from the rows they fetch, and their
@@ -181,3 +183,14 @@ def resize_linear(x, hw):
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
                       mode="bilinear", align_corners=False, antialias=True)
     return y.permute(0, 2, 3, 1)
+
+
+def upsample_half_pixel(x, hw):
+    """``F.interpolate(mode="bilinear", align_corners=False)`` of the NHWC
+    ``x`` to ``hw`` (no antialiasing), on its NCHW view; returns NHWC in
+    ``x``'s dtype.  Runs on whole frames only."""
+    if (x.shape[1], x.shape[2]) == tuple(hw):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1).contiguous()

@@ -46,17 +46,21 @@ class Conv2d(nn.Module):
     """2-D convolution; weight OIHW f32, computed in ``dtype``.
 
     ``padding`` is an int (symmetric) or ``"same"`` (flax/XLA SAME: the odd
-    pixel of padding goes after).  Under a height-sharded frame
-    (``nn/spatial.py``) it computes this rank's output rows.
+    pixel of padding goes after).  ``groups`` splits the channels as
+    ``F.conv2d``'s does (``in_ch`` of them: depthwise).  Under a
+    height-sharded frame (``nn/spatial.py``) it computes this rank's output
+    rows.
     """
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, padding=0,
-                 dilation=1, bias=False, dtype=torch.float32, init_std=None):
+                 dilation=1, bias=False, dtype=torch.float32, init_std=None,
+                 groups=1):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
-        self.kernel = kernel
+        self.kernel, self.groups = kernel, groups
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups,
+                                               kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         # normal(0, 0.01) is the reference init for from-scratch convs;
         # otherwise lecun-normal (flax's default kernel init)
@@ -93,7 +97,7 @@ class Conv2d(nn.Module):
         w = self.weight.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), w, b, self.stride, pad,
-                        self.dilation)
+                        self.dilation, self.groups)
 
     def _forward_strip(self, x, ctx):
         """This rank's output rows of a height-sharded frame
@@ -113,11 +117,52 @@ class Conv2d(nn.Module):
                            self.dtype)
         elif left == right:
             y = F.conv2d(x.to(self.dtype), w, b, self.stride, (0, left),
-                         self.dilation)
+                         self.dilation, self.groups)
         else:
             y = F.conv2d(F.pad(x.to(self.dtype), (left, right)), w, b,
-                         self.stride, 0, self.dilation)
+                         self.stride, 0, self.dilation, self.groups)
         return ctx.record(y, 2, h_out)
+
+
+class Linear(nn.Module):
+    """``y = x w^T + b`` over the last axis of ``x`` (tokens, NHWC); weight
+    ``[out, in]`` and bias f32 under ``nn.Linear``'s keys, computed in
+    ``dtype``; the weight starts normal(0, 0.02) (the transformer init),
+    the bias at 0."""
+
+    INIT_STD = 0.02
+
+    def __init__(self, in_features, out_features, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.normal_(0.0, self.INIT_STD, generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis of ``x`` under ``nn.LayerNorm``'s keys:
+    f32 weight (1) and bias (0) cast to ``dtype`` with the input."""
+
+    def __init__(self, features, eps=1e-5, dtype=torch.float32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        return F.layer_norm(x.to(self.dtype), (x.shape[-1],),
+                            self.weight.to(self.dtype),
+                            self.bias.to(self.dtype), self.eps)
 
 
 def empty_rows(x, shape, dtype):
@@ -239,20 +284,24 @@ def batch_slice(n, d):
         _BATCH_SLICE.reset(token)
 
 
+def sample_keep(generator, shape, rate, device):
+    """A keep mask of ``shape`` (its first axis the batch's): each bool
+    kept with probability ``1 - rate``, drawn from ``generator`` (on
+    ``device``; ``None`` draws from torch's default generator); under
+    :func:`batch_slice`, the global batch's rows of this slice."""
+    part = _BATCH_SLICE.get()
+    if part is None:
+        return torch.rand(shape, generator=generator, device=device) >= rate
+    n, d = part
+    b = shape[0]
+    u = torch.rand((b * n, *shape[1:]), generator=generator, device=device)
+    return u[d * b:(d + 1) * b] >= rate
+
+
 def sample_channel_dropout_draws(generator, x, rate):
     """The keep mask of channel dropout for the NCHW-shaped ``x``: one
-    bool per (sample, channel), kept with probability ``1 - rate``, drawn
-    from ``generator`` (on ``x``'s device; ``None`` draws from torch's
-    default generator); under :func:`batch_slice`, the global batch's
-    rows of this slice."""
-    part = _BATCH_SLICE.get()
-    b = x.shape[0]
-    if part is None:
-        return torch.rand(x.shape[:2], generator=generator,
-                          device=x.device) >= rate
-    n, d = part
-    u = torch.rand((b * n, x.shape[1]), generator=generator, device=x.device)
-    return u[d * b:(d + 1) * b] >= rate
+    bool per (sample, channel) (:func:`sample_keep`)."""
+    return sample_keep(generator, tuple(x.shape[:2]), rate, x.device)
 
 
 def apply_channel_dropout(x, keep, rate):

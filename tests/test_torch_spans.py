@@ -245,7 +245,10 @@ READERS = {"aug_ms.train": (["aug"], "stream_ms"),
            "host_ms.infer": (["infer"], "host_ms"),
            "resize_ms.infer": (["resize"], "stream_ms"),
            "resize_h2d_mb.train": None,
-           "resize_h2d_mb.infer": None}
+           "resize_h2d_mb.infer": None,
+           "attention_ms.train": (["attention"], "stream_ms"),
+           "mix_ffn_ms.train": (["mix_ffn"], "stream_ms"),
+           "decode_head_ms.train": (["decode_head"], "stream_ms")}
 
 
 def _readings(units):
@@ -266,7 +269,8 @@ def test_readers_read_the_totals_a_unit(metric):
     with spans.recording():
         for _ in range(2):
             with spans.span("step.sac"):
-                for name in ("aug", "ema", "teacher", "refine"):
+                for name in ("aug", "ema", "teacher", "refine",
+                             "attention", "mix_ffn", "decode_head"):
                     with spans.span(name):
                         functional.resize_bilinear_align_corners(x, (9, 4))
             with spans.span("infer"):
@@ -275,7 +279,7 @@ def test_readers_read_the_totals_a_unit(metric):
     if READERS[metric] is None:
         grown = spans.growth("host_matrices")
         want = grown["bytes"] / 1e6 / 4
-        assert grown["count"] == 20
+        assert grown["count"] == 32
     else:
         names, field = READERS[metric]
         want = sum(getattr(totals[n], field) for n in names
